@@ -19,9 +19,29 @@ result line; nothing is caught and passed over):
    run_pipeline, with the kernel's launch count read around it; then the
    first 512 trees through the plain f64 path on the card for the f32
    error bound, and a timed device step split into pruning vs the rest.
-5. The result lines: the nvidia-smi line, the kernels JSON line, and the
-   {"ok": true, ...} line last.  Before them the script checks that nothing
-   it ran loaded jax: the port's synthetic inputs come through
+5. The family disk cache: the bench pipeline twice into a fresh cache
+   directory (a miss, then a hit); build_hmm of each, and the two TSVs
+   equal in every non-sampled column, LHLogLikelihood within 1e-4 nats.
+   Then one chunk (``max_chunks=1``) under ``trace_dir``: the
+   torch.profiler trace holds exactly one pruning-kernel launch.
+6. ``cli warmup`` and then ``cli serve`` as subprocesses on a 1,024-tree
+   ensemble of the bench family: two good requests (every row written, the
+   kernel launched) and one missing a key (answered ok: false, naming it),
+   then ``quit`` (exit 0); the wall time of each request.
+7. Viterbi through the kernel: ``PhyloHMM.map_step`` on 4,096 bench trees in
+   f32 (exactly one kernel launch), held against the plain f64 path on the
+   card for the first 512 trees (|dMAP| <= 1 nat, MAP <= log-likelihood),
+   timed; ``map_annotation`` on one tree.
+8. Goldens on the card in f64: SimpleHMM -42.8027747544 / -37.1354672701,
+   TreeBatch pruning -55.73483; ``map_annotation`` on the phylo fixture
+   (card, f32 through the kernel) equal to the CPU's (f64).
+9. Bootstrap ASR (burn-in 0.1, subsample 0.05: 460 trees) on phase 5's
+   10,240-row output, on the card in f64: internal sequences in ACGT, tips
+   verbatim, ``.log``/``.ess`` byte-identical to the same call on the CPU.
+10. The result lines: the nvidia-smi line, the kernels JSON line (launch
+   counts of the pipeline, map and serve paths), and the {"ok": true, ...}
+   line last.  Before them the script checks that nothing it ran loaded
+   jax: the port's synthetic inputs and the family FASTA come through
    linearham_tpu_torch.utils.synth, the port's door to the JAX package's
    numpy-only host modules.
 """
@@ -38,6 +58,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 5e-4          # rtol = atol, kernel vs plain, both f32
 F32_LOGLIK_BOUND = 1.0     # nats, f32 pipeline vs f64 plain path
 BENCH = dict(n_seqs=100, n_trees=10240, chunk=4096, num_rates=4)
+CACHE_LL_BOUND = 1e-4      # nats, family-cache hit vs miss
+SERVE_TREES = 1024         # the reference's default ensemble size
+# Workflow defaults (linearham_tpu/workflow.py:175-176): 460 of 10,240 rows.
+ASR_BURNIN, ASR_SUBSAMPLE, ASR_TREES = 0.1, 0.05, 460
+PI_FIXTURE = [0.17, 0.19, 0.25, 0.39]
+SAMPLED_COLS = {"NaiveSequence", "VGene", "V5pDel", "V3pDel",
+                "VFwkInsertion", "VDInsertion", "DGene", "D5pDel", "D3pDel",
+                "DJInsertion", "JGene", "J5pDel", "J3pDel", "JFwkInsertion"}
 
 
 def check(cond, msg):
@@ -78,7 +106,7 @@ def build():
 
     t0 = time.perf_counter()
     lib = build_library("pruning")
-    pruning_cuda._kernel_lib()
+    pruning_cuda.kernel_lib()
     print(f"built {os.path.relpath(lib, REPO)} in "
           f"{time.perf_counter() - t0:.2f}s")
     log = lib.with_suffix(".log").read_text() if lib.with_suffix(
@@ -187,10 +215,30 @@ def kernel_vs_plain(torch):
     return worst, ms, plain_ms
 
 
-def pipeline(torch):
-    phase(4, "pipeline file to file")
+def plain_f64_emissions(torch, yaml_path, gene_dir, samples):
+    """(f64 model on the card, region emissions of ``samples``) through the
+    plain pruning walk: the reference the f32 kernel paths are held to."""
     from linearham_tpu_torch.models.phylo_hmm import (
         PhyloHMM, naive_prior_correction, region_emissions)
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.pipeline.run import prepare_ensemble
+
+    hmm64 = PhyloHMM(yaml_path, 0, gene_dir, device="cuda",
+                     dtype=torch.float64)
+    sched, eig, rates = prepare_ensemble(hmm64, samples, BENCH["num_rates"])
+    s, eig_t, pi_t, rates_t = hmm64.ensemble_inputs(sched, eig, samples.pi,
+                                                    rates)
+    site_ll = pruning_cuda.site_log_likelihoods_plain(
+        eig_t, pi_t, rates_t, hmm64.xmsa_rows, s["sched_src"],
+        s["sched_penc"], s["sched_len"], s["sched_root"], sched.n_slots)
+    return hmm64, region_emissions(
+        naive_prior_correction(site_ll, pi_t, hmm64.naive_bases),
+        hmm64.consts, hmm64.heavy)
+
+
+def pipeline(torch, tmp):
+    phase(4, "pipeline file to file")
+    from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.ops.forward import forward
     from linearham_tpu_torch.pipeline.run import (prepare_ensemble,
@@ -199,82 +247,372 @@ def pipeline(torch):
                                                  write_pipeline_inputs)
 
     n_trees, chunk = BENCH["n_trees"], BENCH["chunk"]
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
-        t0 = time.perf_counter()
-        files = write_pipeline_inputs(tmp, BENCH["n_seqs"], n_trees, seed=0)
-        fam, yaml_path = files.family, files.yaml_path
-        gene_dir, trees_path = files.gene_dir, files.trees_path
-        out_tsv = os.path.join(tmp, "lh_revbayes_run.trees")
-        print(f"inputs written (untimed) in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    files = write_pipeline_inputs(tmp, BENCH["n_seqs"], n_trees, seed=0)
+    fam, yaml_path = files.family, files.yaml_path
+    gene_dir, trees_path = files.gene_dir, files.trees_path
+    out_tsv = os.path.join(tmp, "lh_revbayes_run.trees")
+    print(f"inputs written (untimed) in {time.perf_counter() - t0:.1f}s")
 
-        torch.cuda.synchronize()
-        pruning_cuda.launches = 0
+    torch.cuda.synchronize()
+    pruning_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = run_pipeline(yaml_path, 0, gene_dir, trees_path, out_tsv,
+                          num_rates=BENCH["num_rates"], seed=0,
+                          chunk_size=chunk, precision="f32",
+                          device="cuda")
+    wall = time.perf_counter() - t0
+    launches = pruning_cuda.launches
+    check(launches > 0, "the pipeline never launched the kernel")
+
+    with open(out_tsv) as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        rows = [ln.rstrip("\n").split("\t") for ln in fh]
+    col = header.index("LHLogLikelihood")
+    lh = torch.tensor([float(r[col]) for r in rows],
+                      dtype=torch.float64)
+    check(len(rows) == n_trees, f"{len(rows)} rows, want {n_trees}")
+    check(bool(torch.isfinite(lh).all()), "non-finite LHLogLikelihood")
+    naive_col = header.index("NaiveSequence")
+    check(all(len(r[naive_col]) == fam.n_sites for r in rows),
+          "NaiveSequence of the wrong length")
+    stages = {k: round(v, 4) for k, v in result.timings.items()}
+    print(f"pipeline: {n_trees} trees x {BENCH['n_seqs']} seqs, chunk "
+          f"{chunk}: wall {wall:.3f}s, {n_trees / wall:.1f} trees/s, "
+          f"kernel launches {launches}")
+    print(f"stages (s): {json.dumps(stages)}")
+
+    # f32 pipeline vs the plain f64 path on the card, first 512 trees.
+    n_ref = 512
+    hmm64, emis = plain_f64_emissions(
+        torch, yaml_path, gene_dir, load_tree_samples(trees_path)[:n_ref])
+    ll64 = forward(hmm64.trans, emis, hmm64.heavy)[0].cpu()
+    dll = float((ll64 - lh[:n_ref]).abs().max())
+    print(f"f32 pipeline vs f64 plain, first {n_ref} trees: "
+          f"max|dLHLogLikelihood| = {dll:.4e} nats "
+          f"(bound {F32_LOGLIK_BOUND})")
+    check(dll <= F32_LOGLIK_BOUND, "f32 log-likelihood error too large")
+
+    # One 4096-tree device step, split into pruning and the rest.
+    hmm32 = PhyloHMM(yaml_path, 0, gene_dir, device="cuda",
+                     dtype=torch.float32)
+    first = load_tree_samples(trees_path)[:chunk]
+    sched, eig, rates = prepare_ensemble(hmm32, first, BENCH["num_rates"])
+    inputs = hmm32.ensemble_inputs(sched, eig, first.pi, rates)
+    gen = torch.Generator(device="cuda")
+    step_ms = cuda_ms(torch, lambda: hmm32.step(*inputs, gen,
+                                                sched.n_slots), 5)
+    s, eig_t, pi_t, rates_t = inputs
+    prune_ms = cuda_ms(torch, lambda: pruning_cuda._launch(
+        eig_t, pi_t, rates_t, hmm32.xmsa_rows, s["sched_src"],
+        s["sched_penc"], s["sched_len"], s["sched_root"],
+        sched.n_slots), 10)
+    print(f"device step at T={chunk}: {step_ms:.3f} ms, of which "
+          f"pruning kernel {prune_ms:.3f} ms, emissions+forward+FFBS "
+          f"{step_ms - prune_ms:.3f} ms (median, CUDA events)")
+    return launches, files
+
+
+def read_tsv(path):
+    with open(path) as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        return header, [ln.rstrip("\n").split("\t") for ln in fh]
+
+
+def family_cache(torch, tmp, files):
+    phase(5, "family cache: the bench pipeline twice, miss then hit")
+    from linearham_tpu_torch.pipeline.run import run_pipeline
+
+    cache = os.path.join(tmp, "family_cache")
+    os.environ["LINEARHAM_FAMILY_CACHE"] = cache
+    outs, builds = {}, {}
+    for run in ("miss", "hit"):
+        outs[run] = os.path.join(tmp, f"lh_cache_{run}.trees")
         t0 = time.perf_counter()
-        result = run_pipeline(yaml_path, 0, gene_dir, trees_path, out_tsv,
+        result = run_pipeline(files.yaml_path, 0, files.gene_dir,
+                              files.trees_path, outs[run],
                               num_rates=BENCH["num_rates"], seed=0,
-                              chunk_size=chunk, precision="f32",
+                              chunk_size=BENCH["chunk"], precision="f32",
                               device="cuda")
-        wall = time.perf_counter() - t0
-        launches = pruning_cuda.launches
-        check(launches > 0, "the pipeline never launched the kernel")
+        builds[run] = result.timings["build_hmm"]
+        print(f"{run}: build_hmm {builds[run]:.4f}s, wall "
+              f"{time.perf_counter() - t0:.3f}s")
+    entries = [f for f in os.listdir(cache) if f.endswith(".pkl")]
+    check(len(entries) == 1, f"cache holds {entries}, want one entry")
 
-        with open(out_tsv) as fh:
-            header = fh.readline().rstrip("\n").split("\t")
-            rows = [ln.rstrip("\n").split("\t") for ln in fh]
-        col = header.index("LHLogLikelihood")
-        lh = torch.tensor([float(r[col]) for r in rows],
-                          dtype=torch.float64)
-        check(len(rows) == n_trees, f"{len(rows)} rows, want {n_trees}")
-        check(bool(torch.isfinite(lh).all()), "non-finite LHLogLikelihood")
-        naive_col = header.index("NaiveSequence")
-        check(all(len(r[naive_col]) == fam.n_sites for r in rows),
-              "NaiveSequence of the wrong length")
-        stages = {k: round(v, 4) for k, v in result.timings.items()}
-        print(f"pipeline: {n_trees} trees x {BENCH['n_seqs']} seqs, chunk "
-              f"{chunk}: wall {wall:.3f}s, {n_trees / wall:.1f} trees/s, "
-              f"kernel launches {launches}")
-        print(f"stages (s): {json.dumps(stages)}")
+    header, miss = read_tsv(outs["miss"])
+    header_hit, hit = read_tsv(outs["hit"])
+    check(header == header_hit and len(miss) == len(hit) == BENCH["n_trees"],
+          "miss and hit TSVs differ in shape")
+    ll = header.index("LHLogLikelihood")
+    fixed = [i for i, c in enumerate(header) if c not in SAMPLED_COLS
+             and c not in ("LHLogLikelihood", "LogWeight")]
+    dll = max(abs(float(a[ll]) - float(b[ll])) for a, b in zip(miss, hit))
+    differ = sum(a != b for a, b in zip(miss, hit))
+    check(all(a[i] == b[i] for a, b in zip(miss, hit) for i in fixed),
+          "a non-sampled column differs between miss and hit")
+    print(f"miss vs hit: max|dLHLogLikelihood| {dll:.3e} nats "
+          f"(bound {CACHE_LL_BOUND}); rows differing in any column: "
+          f"{differ} of {len(miss)}")
+    check(dll <= CACHE_LL_BOUND, "hit log-likelihoods differ from miss")
 
-        # f32 pipeline vs the plain f64 path on the card, first 512 trees.
-        n_ref = 512
-        hmm64 = PhyloHMM(yaml_path, 0, gene_dir, device="cuda",
-                         dtype=torch.float64)
-        sub = load_tree_samples(trees_path)[:n_ref]
-        sched, eig, rates = prepare_ensemble(hmm64, sub, BENCH["num_rates"])
-        s, eig_t, pi_t, rates_t = hmm64.ensemble_inputs(sched, eig, sub.pi,
-                                                        rates)
-        site_ll = pruning_cuda.site_log_likelihoods_plain(
-            eig_t, pi_t, rates_t, hmm64.xmsa_rows, s["sched_src"],
-            s["sched_penc"], s["sched_len"], s["sched_root"], sched.n_slots)
-        emis = region_emissions(
-            naive_prior_correction(site_ll, pi_t, hmm64.naive_bases),
-            hmm64.consts, hmm64.heavy)
-        ll64 = forward(hmm64.trans, emis, hmm64.heavy)[0].cpu()
-        dll = float((ll64 - lh[:n_ref]).abs().max())
-        print(f"f32 pipeline vs f64 plain, first {n_ref} trees: "
-              f"max|dLHLogLikelihood| = {dll:.4e} nats "
-              f"(bound {F32_LOGLIK_BOUND})")
-        check(dll <= F32_LOGLIK_BOUND, "f32 log-likelihood error too large")
+    # One chunk (max_chunks=1, whole-ensemble shapes) under --trace-dir:
+    # the torch.profiler trace must hold the kernel's launch.
+    from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
+    from linearham_tpu_torch.utils.synth import load_tree_samples
 
-        # One 4096-tree device step, split into pruning and the rest.
-        hmm32 = PhyloHMM(yaml_path, 0, gene_dir, device="cuda",
-                         dtype=torch.float32)
-        first = load_tree_samples(trees_path)[:chunk]
-        sched, eig, rates = prepare_ensemble(hmm32, first, BENCH["num_rates"])
-        inputs = hmm32.ensemble_inputs(sched, eig, first.pi, rates)
-        gen = torch.Generator(device="cuda")
-        step_ms = cuda_ms(torch, lambda: hmm32.step(*inputs, gen,
-                                                    sched.n_slots), 5)
-        s, eig_t, pi_t, rates_t = inputs
-        prune_ms = cuda_ms(torch, lambda: pruning_cuda._launch(
-            eig_t, pi_t, rates_t, hmm32.xmsa_rows, s["sched_src"],
-            s["sched_penc"], s["sched_len"], s["sched_root"],
-            sched.n_slots), 10)
-        print(f"device step at T={chunk}: {step_ms:.3f} ms, of which "
-              f"pruning kernel {prune_ms:.3f} ms, emissions+forward+FFBS "
-              f"{step_ms - prune_ms:.3f} ms (median, CUDA events)")
+    trace_dir = os.path.join(tmp, "trace")
+    hmm = cached_phylo_hmm(files.yaml_path, 0, files.gene_dir,
+                           device="cuda", dtype=torch.float32)
+    samples = load_tree_samples(files.trees_path)
+    before = pruning_cuda.launches
+    result = run_pipeline_arrays(hmm, samples, BENCH["num_rates"],
+                                 chunk_size=BENCH["chunk"], max_chunks=1,
+                                 trace_dir=trace_dir)
+    check(len(result.annotations) == BENCH["chunk"]
+          and pruning_cuda.launches == before + 1,
+          "max_chunks=1 did not run exactly one chunk")
+    traces = os.listdir(trace_dir)
+    check(len(traces) == 1, f"trace directory holds {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    pruning = [e for e in kernel_events if "pruning_kernel" in e["name"]]
+    print(f"trace of one {BENCH['chunk']}-tree chunk: {len(events)} events,"
+          f" {len(kernel_events)} CUDA kernels, {len(pruning)} pruning "
+          f"kernel(s), {sum(e['dur'] for e in pruning) / 1e3:.3f} ms")
+    check(len(pruning) == 1, "the trace lacks the pruning kernel's launch")
+    return outs["hit"], builds
+
+
+def warmup_and_serve(torch, tmp, files):
+    phase(6, f"warmup and serve, {SERVE_TREES}-tree ensemble, subprocesses")
+    trees = os.path.join(tmp, f"revbayes_{SERVE_TREES}.trees")
+    with open(files.trees_path) as src, open(trees, "w") as dst:
+        for _ in range(SERVE_TREES + 1):
+            dst.write(src.readline())
+    env = {**os.environ, "LINEARHAM_FAMILY_CACHE":
+           os.path.join(tmp, "serve_cache"), "PYTHONPATH": REPO}
+    cli = [sys.executable, "-m", "linearham_tpu_torch.cli"]
+    family = ["--yaml-path", files.yaml_path, "--cluster-ind", "0",
+              "--hmm-param-dir", files.gene_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        cli + ["warmup", *family, "--input-path", trees, "--num-rates",
+               str(BENCH["num_rates"]), "--chunk-size", str(SERVE_TREES),
+               "--device", "cuda"],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    print(f"warmup: rc {proc.returncode} in {time.perf_counter() - t0:.1f}s:"
+          f" {proc.stdout.strip()}")
+    check(proc.returncode == 0, f"warmup failed:\n{proc.stderr[-3000:]}")
+
+    def request(name, drop=None):
+        req = {"yaml_path": files.yaml_path, "cluster_ind": 0,
+               "hmm_param_dir": files.gene_dir, "input_path": trees,
+               "output_path": os.path.join(tmp, name),
+               "num_rates": BENCH["num_rates"], "chunk_size": SERVE_TREES,
+               "precision": "f32"}
+        req.pop(drop, None)
+        return json.dumps(req)
+
+    stdin = "\n".join([request("serve_a.tsv"),
+                       request("serve_bad.tsv", drop="input_path"),
+                       request("serve_b.tsv"), "quit"]) + "\n"
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli + ["serve", "--device", "cuda"], input=stdin,
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
+    print(f"serve: rc {proc.returncode} in {time.perf_counter() - t0:.1f}s")
+    check(proc.returncode == 0, f"serve failed:\n{proc.stderr[-3000:]}")
+    answers = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    check([a["ok"] for a in answers] == [True, False, True],
+          f"serve answered {answers}")
+    check("'input_path'" in answers[1]["error"],
+          f"the bad request's answer does not name the key: {answers[1]}")
+    launches = 0
+    for a in (answers[0], answers[2]):
+        _, rows = read_tsv(a["output_path"])
+        check(a["n_trees"] == len(rows) == SERVE_TREES,
+              f"{a['output_path']}: {len(rows)} rows")
+        check(a["kernel_launches"] >= 1, "serve never launched the kernel")
+        launches += a["kernel_launches"]
+        print(f"request {os.path.basename(a['output_path'])}: wall "
+              f"{a['wall_s']}s, {a['kernel_launches']} kernel launch(es)")
+    print(f"bad request answered: {answers[1]['error']}")
     return launches
+
+
+def viterbi_through_kernel(torch, tmp, files):
+    phase(7, "Viterbi (MAP) through the kernel")
+    from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.ops.forward import forward
+    from linearham_tpu_torch.ops.viterbi import viterbi
+    from linearham_tpu_torch.pipeline.run import prepare_ensemble
+    from linearham_tpu_torch.utils.synth import load_tree_samples
+
+    chunk, n_ref, R = BENCH["chunk"], 512, BENCH["num_rates"]
+    hmm = cached_phylo_hmm(files.yaml_path, 0, files.gene_dir,
+                           device="cuda", dtype=torch.float32)
+    first = load_tree_samples(files.trees_path)[:chunk]
+    sched, eig, rates = prepare_ensemble(hmm, first, R)
+    inputs = hmm.ensemble_inputs(sched, eig, first.pi, rates)
+    torch.cuda.synchronize()
+    pruning_cuda.launches = 0
+    score, path = hmm.map_step(*inputs, sched.n_slots)
+    torch.cuda.synchronize()
+    step_launches = pruning_cuda.launches
+    check(step_launches == 1, f"map step launched {step_launches} kernels")
+    check(bool(torch.isfinite(score).all()), "non-finite MAP score")
+
+    hmm64, emis = plain_f64_emissions(torch, files.yaml_path,
+                                      files.gene_dir, first[:n_ref])
+    score64, path64 = viterbi(hmm64.trans, emis, hmm64.heavy)
+    ll64 = forward(hmm64.trans, emis, hmm64.heavy)[0]
+    dmap = float((score[:n_ref].double() - score64).abs().max())
+    gap = float((score64 - ll64).max())
+    same = int((path.vd_idx[:n_ref] == path64.vd_idx).all(1).sum())
+    print(f"f32 MAP (kernel) vs f64 plain, first {n_ref} trees: "
+          f"max|dMAP| {dmap:.4e} nats (bound {F32_LOGLIK_BOUND}); "
+          f"max(MAP - loglik) in f64 {gap:.4e}; "
+          f"{same} of {n_ref} VD paths identical")
+    check(dmap <= F32_LOGLIK_BOUND, "f32 MAP score error too large")
+    check(gap <= 1e-9, "a MAP score exceeds its tree's log-likelihood")
+
+    step_ms = cuda_ms(torch, lambda: hmm.map_step(*inputs, sched.n_slots), 5)
+    print(f"MAP step at T={chunk}: {step_ms:.3f} ms (median of 5, CUDA "
+          "events)")
+
+    nwk = os.path.join(tmp, "tree0.nwk")
+    with open(nwk, "w") as fh:
+        fh.write(first.newicks[0] + "\n")
+    hmm.init_phylo_parameters(nwk, list(first.er[0]), list(first.pi[0]),
+                              float(first.alpha[0]), R)
+    pruning_cuda.launches = 0
+    ann = hmm.map_annotation()
+    one_launch = pruning_cuda.launches
+    check(one_launch == 1, "map_annotation did not launch the kernel once")
+    check(len(ann.naive_seq) == files.family.n_sites,
+          "map_annotation naive sequence of the wrong length")
+    print(f"map_annotation, tree 0: score {hmm.map_score:.4f}, "
+          f"V {ann.vgerm_state}, J {ann.jgerm_state}")
+    return step_launches + one_launch, step_ms
+
+
+def goldens(torch):
+    phase(8, "goldens on the card, f64")
+    from dataclasses import asdict
+
+    from linearham_tpu_torch.models import SimpleHMM
+    from linearham_tpu_torch.models.phylo_hmm import (PhyloHMM,
+                                                      naive_prior_correction,
+                                                      region_emissions)
+    from linearham_tpu_torch.ops.forward import forward
+    from linearham_tpu_torch.ops.gtr import GTREigen, gtr_eigen
+    from linearham_tpu_torch.ops.pruning import site_log_likelihoods
+
+    fx = os.path.join(REPO, "tests", "fixtures")
+    for yaml_name, want in (("simple_hmm_input.yaml", -42.8027747544),
+                            ("simple_hmm_input_extra.yaml", -37.1354672701)):
+        got = SimpleHMM(os.path.join(fx, yaml_name), 0,
+                        os.path.join(fx, "hmm_params"), device="cuda",
+                        dtype=torch.float64).log_likelihood()
+        print(f"SimpleHMM {yaml_name}: {got:.10f} (golden {want})")
+        check(abs(got - want) <= 1e-8 * abs(want), f"{yaml_name} golden")
+
+    # TreeBatch pruning feeding the emission chain: R=1, newton.tree.
+    newton = os.path.join(fx, "newton.tree")
+    h = PhyloHMM(os.path.join(fx, "phylo_likelihood_hmm_input.yaml"), 0,
+                 os.path.join(fx, "phylo_likelihood_hmm_params"),
+                 device="cuda", dtype=torch.float64)
+    h.init_phylo_parameters(newton, [1.0] * 6, PI_FIXTURE, 1.0, 1)
+    tb = h.tree_batch
+
+    def f64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device="cuda")
+
+    def i32(a):
+        return torch.as_tensor(a, dtype=torch.int32, device="cuda")
+
+    pi = f64([PI_FIXTURE])
+    site_ll = site_log_likelihoods(
+        GTREigen(*(f64(a) for a in gtr_eigen([[1.0] * 6], [PI_FIXTURE]))),
+        pi, f64([[1.0]]), h.xmsa_rows[i32(tb.tip_perm).long()],
+        i32(tb.tip_parent), f64(tb.tip_length), i32(tb.edge_child),
+        i32(tb.edge_parent), f64(tb.edge_length), i32(tb.root_slot),
+        tb.n_slots)
+    emis = region_emissions(naive_prior_correction(site_ll, pi,
+                                                   h.naive_bases),
+                            h.consts, h.heavy)
+    ll = float(forward(h.trans, emis, h.heavy)[0][0])
+    print(f"TreeBatch pruning, phylo_likelihood fixture: {ll:.6f} "
+          "(golden -55.73483)")
+    check(abs(ll + 55.73483) <= 1e-5, "TreeBatch pruning golden")
+
+    # map_annotation on the card (f32, through the kernel) vs the CPU (f64).
+    args = (os.path.join(fx, "phylo_hmm_input.yaml"), 0,
+            os.path.join(fx, "hmm_params"))
+    anns, scores = {}, {}
+    for dev in ("cuda", "cpu"):
+        hmm = PhyloHMM(*args, device=dev)
+        hmm.init_phylo_parameters(newton, [1.0] * 6, PI_FIXTURE, 1.0, 4)
+        anns[dev], scores[dev] = asdict(hmm.map_annotation()), hmm.map_score
+    print(f"map_annotation phylo fixture: card {scores['cuda']:.6f} "
+          f"(f32), CPU {scores['cpu']:.6f} (f64), naive "
+          f"{anns['cuda']['naive_seq']}")
+    check(anns["cuda"] == anns["cpu"], "card and CPU MAP annotations differ")
+    check(abs(scores["cuda"] - scores["cpu"]) <= 1e-3,
+          "card and CPU MAP scores differ")
+
+
+def bootstrap_asr(torch, tmp, files, pipeline_tsv):
+    phase(9, "bootstrap ASR on the 10,240-row pipeline output")
+    import re
+
+    from linearham_tpu_torch.postprocess.bootstrap_asr import \
+        run_bootstrap_asr
+    from linearham_tpu_torch.utils.synth import write_family_fasta
+
+    fasta = write_family_fasta(files.yaml_path, tmp)
+    with open(fasta) as fh:          # one ">name" line, one sequence line
+        lines = fh.read().split()
+    seqs = dict(zip((name[1:] for name in lines[0::2]), lines[1::2]))
+    times = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_bootstrap_asr(pipeline_tsv, fasta, ASR_BURNIN,
+                                ASR_SUBSAMPLE, 0,
+                                output_base=os.path.join(tmp, f"asr_{dev}"),
+                                device=dev)
+        torch.cuda.synchronize()
+        times[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            cuda_res = res
+    n = len(cuda_res.annotated_trees)
+    print(f"ASR: {n} trees, card {times['cuda']:.3f}s (f64), CPU "
+          f"{times['cpu']:.3f}s (f64, same call)")
+    check(n == ASR_TREES, f"{n} annotated trees, want {ASR_TREES}")
+    node = re.compile(r'([^(),:\[\]]*)\[&ancestral="([^"]*)"\]')
+    n_internal = 0
+    for row, line in zip(cuda_res.rows, cuda_res.annotated_trees):
+        for label, anc in node.findall(line):
+            if label:
+                want = row["NaiveSequence"] if label == "naive" \
+                    else seqs[label]
+                check(anc == want, f"tip {label} not kept verbatim")
+            else:
+                n_internal += 1
+                check(set(anc) <= set("ACGT"), "internal sequence not ACGT")
+    print(f"{n_internal} internal sequences all in ACGT; every tip verbatim")
+    for ext in (".log", ".ess"):
+        with open(os.path.join(tmp, f"asr_cuda{ext}"), "rb") as a, \
+                open(os.path.join(tmp, f"asr_cpu{ext}"), "rb") as b:
+            check(a.read() == b.read(), f"{ext} differs between card and CPU")
+    print(".log and .ess byte-identical between the card and the CPU")
+    return times["cuda"]
 
 
 def main() -> int:
@@ -284,8 +622,15 @@ def main() -> int:
     smi = environment(torch)
     build()
     worst, ms, plain_ms = kernel_vs_plain(torch)
-    launches = pipeline(torch)
-    phase(5, "result")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        launches, files = pipeline(torch, tmp)
+        hit_tsv, _ = family_cache(torch, tmp, files)
+        serve_launches = warmup_and_serve(torch, tmp, files)
+        map_launches, _ = viterbi_through_kernel(torch, tmp, files)
+        goldens(torch)
+        bootstrap_asr(torch, tmp, files, hit_tsv)
+    phase(10, "result")
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     check(not jax_mods, f"the port loaded jax: {jax_mods[:5]}")
@@ -296,6 +641,8 @@ def main() -> int:
         "source": "linearham_tpu_torch/csrc/pruning.cu",
         "replaces": "linearham_tpu/ops/pruning_pallas.py:84",
         "launches": launches,
+        "launches_by_path": {"pipeline": launches, "map": map_launches,
+                             "serve": serve_launches},
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,

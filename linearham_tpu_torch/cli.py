@@ -10,16 +10,42 @@ contract (src/linearham.cpp:268-455):
   python -m linearham_tpu_torch.cli pipeline --yaml-path ... --cluster-ind 0
       --hmm-param-dir ... --input-path revbayes.trees --output-path out.tsv
       [--num-rates K] [--seed S] [--chunk-size C] [--profile]
+      [--trace-dir DIR]
+  python -m linearham_tpu_torch.cli warmup   (pipeline args minus
+      --output-path: fills the family cache, builds the kernel, runs one
+      chunk)
+  python -m linearham_tpu_torch.cli serve    (one JSON pipeline request per
+      stdin line, one JSON answer per stdout line)
 
 Every subcommand also takes ``--device`` (default: CUDA, which must be
 present; ``cpu`` runs the f64 conformance path) and ``--precision``.  Both
 ``--compute-logl`` (reference spelling) and ``compute-logl`` are accepted.
+Families are built through the family disk cache
+(compiler/family_cache.py; ``LINEARHAM_FAMILY_CACHE=off`` disables it).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+import time
+import traceback
+
+# Keys every serve request must carry; the rest are optional.
+SERVE_KEYS = ("yaml_path", "cluster_ind", "hmm_param_dir", "input_path",
+              "output_path")
+
+
+def _device_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--precision", choices=["f32", "f64", "auto"],
+                   default="auto",
+                   help="compute precision: f32 (production, CUDA pruning "
+                        "kernel), f64 (reference-conformance numerics); "
+                        "auto = f32 on CUDA, f64 on the CPU")
+    p.add_argument("--device", default=None,
+                   help="torch device; default cuda (a GPU is required), "
+                        "'cpu' for the CPU conformance path")
 
 
 def _base_args(p: argparse.ArgumentParser) -> None:
@@ -32,14 +58,7 @@ def _base_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0, help="RNG seed")
     p.add_argument("--num-rates", type=int, default=1,
                    help="number of gamma rate categories")
-    p.add_argument("--precision", choices=["f32", "f64", "auto"],
-                   default="auto",
-                   help="compute precision: f32 (production, CUDA pruning "
-                        "kernel), f64 (reference-conformance numerics); "
-                        "auto = f32 on CUDA, f64 on the CPU")
-    p.add_argument("--device", default=None,
-                   help="torch device; default cuda (a GPU is required), "
-                        "'cpu' for the CPU conformance path")
+    _device_args(p)
 
 
 def _phylo_args(p: argparse.ArgumentParser) -> None:
@@ -79,6 +98,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print per-stage wall-clock timings to stderr")
     p.add_argument("--chunk-size", type=int, default=256,
                    help="trees per device step (default 256)")
+    p.add_argument("--trace-dir",
+                   help="write a torch.profiler trace of the chunk loop "
+                        "(Chrome trace JSON) into this directory")
+
+    p = sub.add_parser(
+        "serve",
+        help="long-lived pipeline server: one JSON request per stdin line "
+             "({yaml_path, cluster_ind, hmm_param_dir, input_path, "
+             "output_path, num_rates?, seed?, chunk_size?, precision?}), "
+             "one JSON answer per stdout line; 'quit' ends it")
+    _device_args(p)
+
+    p = sub.add_parser(
+        "warmup",
+        help="fill the family cache, build the kernel library, and run one "
+             "chunk of the ensemble with the whole ensemble's shapes")
+    _base_args(p)
+    p.add_argument("--input-path", required=True,
+                   help="RevBayes output TSV file (shapes come from all of "
+                        "it; only the first chunk runs)")
+    p.add_argument("--chunk-size", type=int, default=256,
+                   help="chunk size the later pipeline run will use")
     return top
 
 
@@ -94,6 +135,91 @@ def _validate_gtr(args) -> None:
               "given by the normalized GTR model", file=sys.stderr)
 
 
+def _serve(args) -> int:
+    """Answer pipeline requests from stdin, one JSON object per line.
+
+    A bad request (a missing key, an unreadable file, a malformed value)
+    is answered ``{"ok": false, "error": ...}`` and the server goes on.  A
+    device failure is not a bad request: it ends the server with exit code
+    1, so nothing carries on over a broken CUDA context.
+    """
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.pipeline.run import run_pipeline
+    from linearham_tpu_torch.utils.runtime import (is_device_error,
+                                                   resolve_device)
+
+    device = resolve_device(args.device)
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            continue
+        if line in ("quit", "exit"):
+            break
+        t0 = time.perf_counter()
+        launches = pruning_cuda.launches
+        try:
+            req = json.loads(line)
+            if not isinstance(req, dict):
+                raise ValueError("a request must be a JSON object")
+            missing = [k for k in SERVE_KEYS if k not in req]
+            if missing:
+                raise ValueError("request is missing key(s): "
+                                 + ", ".join(repr(k) for k in missing))
+            result = run_pipeline(
+                req["yaml_path"], int(req["cluster_ind"]),
+                req["hmm_param_dir"], req["input_path"], req["output_path"],
+                num_rates=int(req.get("num_rates", 4)),
+                seed=int(req.get("seed", 0)),
+                chunk_size=int(req.get("chunk_size", 256)),
+                precision=req.get("precision", args.precision),
+                device=device)
+        except Exception as exc:  # noqa: BLE001 -- the server's boundary
+            if is_device_error(exc):
+                traceback.print_exc()
+                print("serve: device failure; stopping", file=sys.stderr)
+                return 1
+            print(json.dumps({"ok": False,
+                              "error": f"{type(exc).__name__}: {exc}"}),
+                  flush=True)
+            continue
+        print(json.dumps({
+            "ok": True,
+            "output_path": req["output_path"],
+            "n_trees": result.samples.n_samples,
+            "wall_s": round(time.perf_counter() - t0, 3),
+            "kernel_launches": pruning_cuda.launches - launches,
+        }), flush=True)
+    return 0
+
+
+def _warmup(args, dtype) -> int:
+    """Fill the family cache, build the kernel library (on CUDA), and run
+    one chunk with the whole ensemble's shapes."""
+    from linearham_tpu.io.trees_tsv import load_tree_samples
+    from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
+
+    t0 = time.perf_counter()
+    samples = load_tree_samples(args.input_path)
+    hmm = cached_phylo_hmm(args.yaml_path, args.cluster_ind,
+                           args.hmm_param_dir, seed=args.seed,
+                           device=args.device, dtype=dtype)
+    if hmm.device.type == "cuda":
+        pruning_cuda.kernel_lib()
+    result = run_pipeline_arrays(hmm, samples, args.num_rates,
+                                 seed=args.seed, chunk_size=args.chunk_size,
+                                 max_chunks=1)
+    n = len(result.annotations)
+    expected = min(args.chunk_size, samples.n_samples)
+    if n != expected:
+        raise RuntimeError(f"warmup drained {n} trees, expected {expected}")
+    print(f"warmup ok: family cache and kernel ready for "
+          f"chunk={args.chunk_size} on {hmm.device} in "
+          f"{time.perf_counter() - t0:.1f}s ({n} trees exercised)")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # Accept the reference's '--compute-logl' style subcommand spelling.
@@ -102,6 +228,14 @@ def main(argv=None) -> int:
         argv[0] = argv[0][2:]
     args = build_parser().parse_args(argv)
 
+    if args.subcommand == "serve":
+        return _serve(args)
+
+    from linearham_tpu_torch.utils.runtime import resolve_dtype
+
+    dtype = resolve_dtype(args.precision, args.device)
+    if args.subcommand == "warmup":
+        return _warmup(args, dtype)
     if args.subcommand == "pipeline":
         from linearham_tpu_torch.pipeline.run import run_pipeline
 
@@ -109,17 +243,16 @@ def main(argv=None) -> int:
             args.yaml_path, args.cluster_ind, args.hmm_param_dir,
             args.input_path, args.output_path, args.num_rates,
             seed=args.seed, chunk_size=args.chunk_size,
-            profile=args.profile, precision=args.precision,
-            device=args.device)
+            profile=args.profile, precision=dtype, device=args.device,
+            trace_dir=args.trace_dir)
         return 0
 
-    from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
-    from linearham_tpu_torch.utils.runtime import resolve_dtype
+    from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
 
     _validate_gtr(args)
-    hmm = PhyloHMM(args.yaml_path, args.cluster_ind, args.hmm_param_dir,
-                   seed=args.seed, device=args.device,
-                   dtype=resolve_dtype(args.precision, args.device))
+    hmm = cached_phylo_hmm(args.yaml_path, args.cluster_ind,
+                           args.hmm_param_dir, seed=args.seed,
+                           device=args.device, dtype=dtype)
     hmm.init_phylo_parameters(args.newick_path, args.er, args.pi,
                               args.alpha, args.num_rates)
     if args.subcommand == "compute-logl":

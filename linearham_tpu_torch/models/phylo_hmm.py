@@ -5,8 +5,8 @@ Felsenstein likelihoods over the xMSA conditional on the hidden naive base,
 divided by the naive base's stationary probability (the HMM supplies the
 naive prior; reference: src/PhyloHMM.cpp:220-238).  A whole batch of
 posterior trees runs as one device step: pruning (the hand-written kernel
-on CUDA), the naive-prior correction, the region-emission matmuls, forward
-and FFBS.
+on CUDA), the naive-prior correction, the region-emission matmuls, then
+forward and FFBS (``phylo_step``) or Viterbi (``phylo_map_step``).
 
 ``PhyloHMM`` is an ``nn.Module`` whose buffers are the family-constant
 tensors (transitions, emission maps, xMSA rows), placed once on its device
@@ -26,16 +26,18 @@ from torch import nn
 from linearham_tpu.compiler.state_space import build_state_space
 from linearham_tpu.compiler.xmsa import Xmsa, build_xmsa, segment_matrix
 from linearham_tpu.io.germline import load_gene_map
-from linearham_tpu.io.newick import batch_trees, parse_newick
+from linearham_tpu.io.newick import TreeBatch, batch_trees, parse_newick
 from linearham_tpu.io.partis import ClusterData, load_cluster
 from linearham_tpu.io.schedule import PruningSchedule, build_schedule
 from linearham_tpu_torch.compiler.compiled import compile_family
 from linearham_tpu_torch.models.decode import Annotation, decode_paths_batch
-from linearham_tpu_torch.ops.ffbs import SampledPath, sample_path
-from linearham_tpu_torch.ops.forward import ForwardCache, forward
+from linearham_tpu_torch.ops.ffbs import (SampledPath, path_to_numpy,
+                                         sample_path)
+from linearham_tpu_torch.ops.forward import ForwardCache, forward, widen_cache
 from linearham_tpu_torch.ops.gtr import (GTREigen, gamma_category_rates,
                                         gtr_eigen)
 from linearham_tpu_torch.ops.pruning_cuda import site_log_likelihoods
+from linearham_tpu_torch.ops.viterbi import viterbi
 from linearham_tpu_torch.utils.runtime import (full_f32_matmuls,
                                                resolve_device, resolve_dtype,
                                                to_device)
@@ -165,6 +167,14 @@ def phylo_step(trans, consts, xmsa_rows, naive_bases, sched: dict,
     return loglik, torch.exp(site_ll_corr), path
 
 
+def phylo_map_step(trans, consts, xmsa_rows, naive_bases, sched: dict,
+                   eig: GTREigen, pi, rates, heavy: bool, n_slots: int):
+    """Viterbi variant of phylo_step: (MAP joint log-prob [T], MAP path)."""
+    emis, _ = phylo_emissions(consts, xmsa_rows, naive_bases, sched, eig, pi,
+                              rates, heavy, n_slots)
+    return viterbi(trans, emis, heavy)
+
+
 def host_products(cluster: ClusterData, genes, msa: np.ndarray) -> dict:
     """All family-constant host arrays (numpy).  The keys match the dict
     linearham_tpu's ``PhyloHMM._host_products`` returns, so a family built
@@ -185,6 +195,16 @@ def host_products(cluster: ClusterData, genes, msa: np.ndarray) -> dict:
         "xmsa_rows_np": np.asarray(xmsa.matrix, np.int32),
         "naive_bases_np": np.asarray(xmsa.naive_bases, np.int32),
     }
+
+
+def load_host_products(yaml_path: str, cluster_ind: int,
+                       hmm_param_dir: str) -> dict:
+    """``host_products`` of one family read from its partis YAML and its
+    germline parameter directory."""
+    cluster = load_cluster(yaml_path, cluster_ind)
+    genes = load_gene_map(hmm_param_dir)
+    msa = cluster.msa_codes(next(iter(genes.values())).alphabet + "N")
+    return host_products(cluster, genes, msa)
 
 
 def check_schedule(sched: PruningSchedule, n_rows: int) -> None:
@@ -219,11 +239,8 @@ class PhyloHMM(nn.Module):
     def __init__(self, yaml_path: str, cluster_ind: int, hmm_param_dir: str,
                  seed: int = 0, device=None, dtype=None):
         super().__init__()
-        cluster = load_cluster(yaml_path, cluster_ind)
-        genes = load_gene_map(hmm_param_dir)
-        msa = cluster.msa_codes(next(iter(genes.values())).alphabet + "N")
-        self._install(host_products(cluster, genes, msa), seed, device,
-                      dtype)
+        self._install(load_host_products(yaml_path, cluster_ind,
+                                         hmm_param_dir), seed, device, dtype)
 
     @classmethod
     def from_parts(cls, locus, flexbounds, relpos, genes, msa, unique_ids,
@@ -276,9 +293,11 @@ class PhyloHMM(nn.Module):
             host["naive_bases_np"], dtype=torch.int32, device=self.device))
 
         self.params: Optional[PhyloParams] = None
+        self.tree_batch: Optional[TreeBatch] = None
         self._schedule: Optional[PruningSchedule] = None
         self._loglik = None
         self._xmsa_emission = None
+        self.map_score: Optional[float] = None
 
     @property
     def trans(self) -> Dict[str, torch.Tensor]:
@@ -319,6 +338,13 @@ class PhyloHMM(nn.Module):
                           self.naive_bases, sched_t, eig_t, pi_t, rates_t,
                           generator, self.heavy, n_slots)
 
+    def map_step(self, sched_t: dict, eig_t: GTREigen, pi_t, rates_t,
+                 n_slots: int):
+        """phylo_map_step with this family's constants."""
+        return phylo_map_step(self.trans, self.consts, self.xmsa_rows,
+                              self.naive_bases, sched_t, eig_t, pi_t,
+                              rates_t, self.heavy, n_slots)
+
     # -- single-tree API (mirrors the reference CLI subcommands) ----------
 
     def init_phylo_parameters(self, newick_path: str, er: Sequence[float],
@@ -326,8 +352,10 @@ class PhyloHMM(nn.Module):
                               num_rates: int) -> None:
         with open(newick_path) as fh:
             tree = parse_newick(fh.read())
-        self._schedule = build_schedule(
-            batch_trees([tree], self.xmsa.labels))
+        # One-slot-per-node arrays (ops/pruning.py) and the kernel's
+        # slot-reuse schedule of the same tree.
+        self.tree_batch = batch_trees([tree], self.xmsa.labels)
+        self._schedule = build_schedule(self.tree_batch)
         self.params = PhyloParams(
             er=list(er), pi=list(pi), alpha=float(alpha),
             num_rates=num_rates,
@@ -352,6 +380,11 @@ class PhyloHMM(nn.Module):
         self._xmsa_emission = torch.exp(site_ll_corr).cpu().numpy()
         return cache
 
+    def init_phylo_emission(self) -> None:
+        """Compute (and cache) the current tree's emissions and
+        log-likelihood."""
+        self._forward_current()
+
     def log_likelihood(self) -> float:
         if self._loglik is None:
             self._forward_current()
@@ -363,24 +396,25 @@ class PhyloHMM(nn.Module):
             self._forward_current()
         return self._xmsa_emission[0]
 
+    def sample_naive_sequence(self) -> Annotation:
+        """Draw one posterior V(D)J path under the current tree."""
+        return self.sample_annotations(1)[0]
+
     def sample_annotations(self, n: int) -> List[Annotation]:
         """Draw ``n`` posterior paths under the current tree in one batched
         backward walk over a single forward pass."""
-        cache = self._forward_current()
-
-        def widen(a, axis):
-            if a is None:
-                return None
-            shape = [-1] * a.dim()
-            shape[axis] = n
-            return a.expand(*shape)
-
-        cache_n = ForwardCache(
-            vgerm_u=widen(cache.vgerm_u, 0), vd_u=widen(cache.vd_u, 1),
-            dgerm_u=widen(cache.dgerm_u, 0), dj_u=widen(cache.dj_u, 1),
-            jgerm_u=widen(cache.jgerm_u, 0))
-        path = sample_path(self.generator, self.trans, cache_n, self.heavy)
+        cache = widen_cache(self._forward_current(), n)
+        path = sample_path(self.generator, self.trans, cache, self.heavy)
         return self.decode_batch(path_to_numpy(path))
+
+    def map_annotation(self) -> Annotation:
+        """The MAP (Viterbi) V(D)J annotation under the current tree; its
+        joint log-probability is left in ``self.map_score``."""
+        sched, eig, pi, rates = self._tree_inputs()
+        score, path = self.map_step(sched, eig, pi, rates,
+                                    self._schedule.n_slots)
+        self.map_score = float(score[0])
+        return self.decode_batch(path_to_numpy(path))[0]
 
     def decode_batch(self, path: SampledPath) -> List[Annotation]:
         """Decode a batch of sampled paths (numpy leaves, [T, ...])."""
@@ -388,8 +422,3 @@ class PhyloHMM(nn.Module):
             self.space, vgerm_idx=path.vgerm_idx, vd_idx=path.vd_idx,
             dgerm_idx=path.dgerm_idx, dj_idx=path.dj_idx,
             jgerm_idx=path.jgerm_idx, n_sites=self.cluster.n_sites)
-
-
-def path_to_numpy(path: SampledPath) -> SampledPath:
-    return SampledPath(*(None if a is None else a.cpu().numpy()
-                         for a in path))

@@ -29,6 +29,12 @@ class SampledPath(NamedTuple):
     jgerm_idx: torch.Tensor            # [T]
 
 
+def path_to_numpy(path: SampledPath) -> SampledPath:
+    """The same path with numpy leaves (copied to the host)."""
+    return SampledPath(*(None if a is None else a.cpu().numpy()
+                         for a in path))
+
+
 def _safe_log(x: torch.Tensor) -> torch.Tensor:
     return torch.log(torch.clamp(x, min=0.0))
 

@@ -31,6 +31,23 @@ class ForwardCache(NamedTuple):
     jgerm_u: torch.Tensor            # [T, Gj]
 
 
+def widen_cache(cache: ForwardCache, n: int) -> ForwardCache:
+    """A one-tree cache seen as ``n`` identical trees (views, no copies), so
+    one backward walk draws ``n`` paths from one forward pass."""
+
+    def widen(a, axis):
+        if a is None:
+            return None
+        shape = [-1] * a.dim()
+        shape[axis] = n
+        return a.expand(*shape)
+
+    return ForwardCache(
+        vgerm_u=widen(cache.vgerm_u, 0), vd_u=widen(cache.vd_u, 1),
+        dgerm_u=widen(cache.dgerm_u, 0), dj_u=widen(cache.dj_u, 1),
+        jgerm_u=widen(cache.jgerm_u, 0))
+
+
 def _normalize(f_log: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split log-space values into (max-normalized linear, log-scale)."""
     m = f_log.amax(dim=-1)

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from linearham_tpu_torch.ops.gtr import GTREigen
+from linearham_tpu_torch.utils.runtime import DeviceError
 
 # Kernel launches made by site_log_likelihoods in this process (reset freely).
 launches = 0
@@ -35,7 +36,7 @@ MAX_SHARED_BYTES = 232_448      # 227 KB: a Hopper block's shared-memory cap
 _lib = None
 
 
-def _kernel_lib() -> ctypes.CDLL:
+def kernel_lib() -> ctypes.CDLL:
     """Build (first use only) and bind csrc/pruning.cu."""
     global _lib
     if _lib is None:
@@ -107,7 +108,7 @@ def _launch(eig, pi, rates, row_codes, sched_src, sched_penc, sched_len,
         raise ValueError(f"pruning kernel: R={R} rate categories; the kernel "
                          f"is built for R in {SUPPORTED_RATES}")
 
-    lib = _kernel_lib()
+    lib = kernel_lib()
     need = lib.lh_pruning_smem_bytes(N, n_slots, R)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
@@ -125,7 +126,7 @@ def _launch(eig, pi, rates, row_codes, sched_src, sched_penc, sched_len,
             eig.u_inv.data_ptr(), eig.lam.data_ptr(), rates.data_ptr(),
             pi.data_ptr(), out.data_ptr(), T, N, X, n_slots, R, stream)
     if rc != 0:
-        raise RuntimeError(f"pruning kernel launch failed: cudaError {rc}")
+        raise DeviceError(f"pruning kernel launch failed: cudaError {rc}")
     launches += 1
     return out
 

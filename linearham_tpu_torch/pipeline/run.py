@@ -15,6 +15,8 @@ Output columns match the reference contract exactly
 
 from __future__ import annotations
 
+import contextlib
+import os
 import re
 import sys
 import time
@@ -30,9 +32,10 @@ from linearham_tpu.io.schedule import build_schedule
 from linearham_tpu.io.trees_tsv import TreeSamples, load_tree_samples
 from linearham_tpu.utils.fileio import atomic_write
 from linearham_tpu.utils.profiling import StageTimer
+from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
 from linearham_tpu_torch.models.decode import Annotation
-from linearham_tpu_torch.models.phylo_hmm import PhyloHMM, path_to_numpy
-from linearham_tpu_torch.ops.ffbs import SampledPath
+from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
+from linearham_tpu_torch.ops.ffbs import SampledPath, path_to_numpy
 from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch, gtr_eigen
 from linearham_tpu_torch.utils.runtime import resolve_dtype
 
@@ -51,9 +54,11 @@ class PipelineResult:
     timings: Optional[dict] = None  # stage -> seconds
 
 
-def prepare_ensemble(hmm: PhyloHMM, samples: TreeSamples, num_rates: int):
-    """Host-side ensemble prep: parse and schedule every tree, gamma rates,
-    GTR eigenfactors.  Returns (PruningSchedule, GTREigen numpy, rates).
+def prepare_ensemble(hmm: PhyloHMM, samples: TreeSamples, num_rates: int,
+                     rates: Optional[np.ndarray] = None):
+    """Host-side ensemble prep: parse and schedule every tree, gamma rates
+    (unless given), GTR eigenfactors.  Returns (PruningSchedule, GTREigen
+    numpy, rates).
 
     The whole ensemble is parsed at once (one native batch call), so every
     chunk shares one schedule width and slot count.
@@ -64,7 +69,8 @@ def prepare_ensemble(hmm: PhyloHMM, samples: TreeSamples, num_rates: int):
     if tb is None:   # no native library: the Python parser, on the host
         tb = batch_trees([parse_newick(nw) for nw in samples.newicks],
                          hmm.xmsa.labels)
-    rates = gamma_category_rates_batch(samples.alpha, num_rates)
+    if rates is None:
+        rates = gamma_category_rates_batch(samples.alpha, num_rates)
     return build_schedule(tb), gtr_eigen(samples.er, samples.pi), rates
 
 
@@ -102,11 +108,19 @@ def run_pipeline_arrays(
     seed: int = 0,
     chunk_size: int = 256,
     on_chunk=None,
+    rates: Optional[np.ndarray] = None,
+    max_chunks: Optional[int] = None,
+    trace_dir: Optional[str] = None,
 ) -> PipelineResult:
     """Run the whole ensemble through the device step, chunk by chunk.
 
     ``on_chunk(start, n_valid, logliks, annotations)`` (optional) fires as
-    each chunk drains, in order, so the output can be streamed.
+    each chunk drains, in order, so the output can be streamed.  ``rates``
+    [T, R] are the gamma rates if the caller already has them.
+    ``max_chunks`` stops after that many chunks (the warmup path): shapes
+    still come from the whole ensemble, and the results cover only the
+    rows run.  ``trace_dir`` writes a torch.profiler trace of the chunk
+    loop there (see ``_maybe_trace``).
     """
     timer = StageTimer()
     T = samples.n_samples
@@ -115,13 +129,15 @@ def run_pipeline_arrays(
     generator.manual_seed(seed)
 
     with timer.stage("host_prepare"):
-        sched, eig, rates = prepare_ensemble(hmm, samples, num_rates)
+        sched, eig, rates = prepare_ensemble(hmm, samples, num_rates, rates)
 
+    starts = list(range(0, T, chunk_size))[:max_chunks]
     logliks = np.zeros(T)
     annotations: List[Annotation] = []
     futures = []
-    with ThreadPoolExecutor(1) as drain_pool:
-        for start in range(0, T, chunk_size):
+    with _maybe_trace(trace_dir, hmm.device), \
+            ThreadPoolExecutor(1) as drain_pool:
+        for start in starts:
             idx = np.arange(start, min(start + chunk_size, T))
             with timer.stage("device_transfer"):
                 inputs = hmm.ensemble_inputs(sched, eig, samples.pi, rates,
@@ -139,6 +155,29 @@ def run_pipeline_arrays(
         samples=samples, rates=rates, lh_loglik=logliks,
         logweight=logliks - samples.rb_loglik, annotations=annotations,
         timings=timer.as_dict())
+
+
+@contextlib.contextmanager
+def _maybe_trace(trace_dir: Optional[str], device: torch.device):
+    """A torch.profiler trace (CPU activity, plus CUDA kernels on a CUDA
+    device) of the block, written as a Chrome trace JSON file into
+    ``trace_dir``; a no-op without a directory.  The counterpart of
+    linearham_tpu/utils/profiling.py:maybe_trace."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"pipeline.{os.getpid()}.{time.time_ns()}.trace.json"))
 
 
 def write_tsv_header(num_rates: int, heavy: bool, outfile: TextIO) -> None:
@@ -207,20 +246,24 @@ def run_pipeline(
     profile: bool = False,
     precision: Optional[str] = None,
     device=None,
+    trace_dir: Optional[str] = None,
 ) -> PipelineResult:
     """End-to-end: partis YAML + RevBayes TSV -> linearham output TSV.
 
     ``device``: None means CUDA (raises without one); name "cpu" for the
     CPU conformance path.  ``precision``: f32, f64, or None/auto (f32 on
-    CUDA, f64 on the CPU).  Rows are streamed to a temp file that is
-    renamed into place only on success, so a crash leaves no partial TSV.
+    CUDA, f64 on the CPU).  The family is built through the family disk
+    cache (compiler/family_cache.py).  Rows are streamed to a temp file
+    that is renamed into place only on success, so a crash leaves no
+    partial TSV.  ``trace_dir``: see ``run_pipeline_arrays``.
     """
     t0 = time.perf_counter()
     samples = load_tree_samples(input_path)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    hmm = PhyloHMM(yaml_path, cluster_ind, hmm_param_dir, seed=seed,
-                   device=device, dtype=resolve_dtype(precision, device))
+    hmm = cached_phylo_hmm(yaml_path, cluster_ind, hmm_param_dir, seed=seed,
+                           device=device,
+                           dtype=resolve_dtype(precision, device))
     build_s = time.perf_counter() - t0
 
     rates = gamma_category_rates_batch(samples.alpha, num_rates)
@@ -238,7 +281,8 @@ def run_pipeline(
 
         result = run_pipeline_arrays(hmm, samples, num_rates, seed=seed,
                                      chunk_size=chunk_size,
-                                     on_chunk=on_chunk)
+                                     on_chunk=on_chunk, rates=rates,
+                                     trace_dir=trace_dir)
     result.timings["build_hmm"] = build_s
     result.timings["load_trees_tsv"] = load_s
     result.timings["write_tsv"] = write_s[0]

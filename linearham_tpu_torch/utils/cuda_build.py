@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from linearham_tpu_torch.utils.runtime import DeviceError
+
 REPO_ROOT = Path(__file__).resolve().parents[2]
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -44,7 +46,7 @@ def find_nvcc() -> str:
     for c in candidates:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError(
+    raise DeviceError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
         "/usr/local/cuda/bin); the CUDA kernels need the CUDA toolkit")
 
@@ -75,7 +77,7 @@ def build_library(name: str) -> Path:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {source}:\n{proc.stderr}")
+        raise DeviceError(f"nvcc failed to build {source}:\n{proc.stderr}")
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)   # atomic: concurrent builds each leave a whole file
     return lib

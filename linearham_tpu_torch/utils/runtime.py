@@ -16,6 +16,26 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
+class DeviceError(RuntimeError):
+    """A CUDA kernel of the port failed to build or launch."""
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """True for a failure of the device itself -- a kernel that did not
+    build or launch, or a CUDA error reported by torch (a device-side
+    assert, an illegal address) -- after which the CUDA context may be
+    unusable.  An out-of-memory error is not one: the context survives it.
+    """
+    if isinstance(exc, DeviceError):
+        return True
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return False
+    accelerator_error = getattr(torch, "AcceleratorError", None)
+    if accelerator_error is not None and isinstance(exc, accelerator_error):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA error" in str(exc)
+
+
 def full_f32_matmuls() -> None:
     """Run every f32 matmul and convolution at full f32, never TF32.
 

@@ -25,7 +25,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys\n"
         "import linearham_tpu_torch, linearham_tpu_torch.pipeline.run, "
         "linearham_tpu_torch.cli, linearham_tpu_torch.ops.pruning_cuda, "
-        "linearham_tpu_torch.utils.synth\n"
+        "linearham_tpu_torch.utils.synth, linearham_tpu_torch.ops.pruning, "
+        "linearham_tpu_torch.ops.asr, linearham_tpu_torch.ops.viterbi, "
+        "linearham_tpu_torch.models, linearham_tpu_torch.models.simple_hmm, "
+        "linearham_tpu_torch.compiler.family_cache, "
+        "linearham_tpu_torch.postprocess.bootstrap_asr\n"
         "print(sorted(m for m in sys.modules "
         "if m == 'jax' or m.startswith(('jax.', 'jaxlib'))))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -84,3 +88,15 @@ def test_kernel_build_key_tracks_source_and_compiler(tmp_path):
     src.write_text("__global__ void k() { }\n")
     assert key != build_key(src, "nvcc 12.9")
     assert (CSRC_DIR / "pruning.cu").is_file()
+
+
+def test_device_errors_are_told_from_bad_requests():
+    """What ends the serve loop: the port's kernel failures and torch's
+    CUDA errors; an out-of-memory error or a bad input does not."""
+    assert runtime.is_device_error(runtime.DeviceError("launch failed"))
+    assert runtime.is_device_error(
+        RuntimeError("CUDA error: device-side assert triggered"))
+    assert not runtime.is_device_error(
+        torch.cuda.OutOfMemoryError("CUDA out of memory"))
+    assert not runtime.is_device_error(ValueError("missing key"))
+    assert not runtime.is_device_error(FileNotFoundError("no such file"))

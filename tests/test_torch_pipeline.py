@@ -7,6 +7,7 @@ must be identical; the log-likelihoods agree at rel 1e-9.
 """
 
 import io
+import os
 import subprocess
 import sys
 
@@ -223,3 +224,118 @@ def test_cli_compute_logl(fixtures_dir):
     proc = _cli(*argv)
     assert proc.returncode == 0, proc.stderr
     assert float(proc.stdout.strip()) == pytest.approx(-75.8136, abs=1e-3)
+
+
+def test_max_chunks_drains_exactly_that_many(fixtures_dir, tmp_path):
+    """Shapes come from the whole ensemble; only the first chunk runs, and
+    its rows equal a full run's."""
+    src = tmp_path / "in.tsv"
+    _make_tsv(src, n_rows=7, seed=4)
+    hmm = PhyloHMM(str(fixtures_dir / "phylo_hmm_input.yaml"), 0,
+                   str(fixtures_dir / "hmm_params"), device="cpu")
+    samples = load_tree_samples(str(src))
+    seen = []
+    one = run_pipeline_arrays(
+        hmm, samples, num_rates=4, chunk_size=3, max_chunks=1,
+        on_chunk=lambda start, n, ll, anns: seen.append((start, n)))
+    assert seen == [(0, 3)] and len(one.annotations) == 3
+    whole = run_pipeline_arrays(hmm, samples, num_rates=4, chunk_size=3)
+    np.testing.assert_allclose(one.lh_loglik[:3], whole.lh_loglik[:3],
+                               rtol=1e-12)
+    assert (one.lh_loglik[3:] == 0).all()
+
+
+def _pipeline_argv(fixtures_dir, tsv, *extra):
+    return ["--yaml-path", str(fixtures_dir / "phylo_hmm_input.yaml"),
+            "--cluster-ind", "0", "--hmm-param-dir",
+            str(fixtures_dir / "hmm_params"), "--input-path", str(tsv),
+            "--num-rates", "4", "--device", "cpu", *extra]
+
+
+def test_cli_pipeline_trace_dir_writes_a_trace(fixtures_dir, tsv, tmp_path):
+    import json
+
+    trace = tmp_path / "trace"
+    proc = _cli("pipeline", *_pipeline_argv(
+        fixtures_dir, tsv, "--output-path", str(tmp_path / "out.tsv"),
+        "--chunk-size", "2", "--trace-dir", str(trace)))
+    assert proc.returncode == 0, proc.stderr
+    files = list(trace.glob("*.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("einsum" in str(e.get("name", "")) or
+               "matmul" in str(e.get("name", "")) for e in events)
+    assert len(_read(tmp_path / "out.tsv")[1]) == 5
+
+
+def test_cli_warmup(fixtures_dir, tsv, tmp_path):
+    env_cache = tmp_path / "fam_cache"
+    proc = subprocess.run(
+        [sys.executable, "-m", "linearham_tpu_torch.cli", "warmup",
+         *_pipeline_argv(fixtures_dir, tsv, "--chunk-size", "2")],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "LINEARHAM_FAMILY_CACHE": str(env_cache)})
+    assert proc.returncode == 0, proc.stderr
+    assert "warmup ok" in proc.stdout and "(2 trees exercised)" in proc.stdout
+    assert len(list(env_cache.glob("*.pkl"))) == 1
+
+
+def test_cli_serve_answers_each_request(fixtures_dir, tsv, tmp_path):
+    """Two good requests, one missing a key (answered ok: false, naming the
+    key, and the server goes on), then quit: exit 0."""
+    import json
+
+    def request(name, **drop):
+        req = {"yaml_path": str(fixtures_dir / "phylo_hmm_input.yaml"),
+               "cluster_ind": 0, "hmm_param_dir": str(fixtures_dir /
+                                                      "hmm_params"),
+               "input_path": str(tsv), "output_path": str(tmp_path / name),
+               "num_rates": 4, "chunk_size": 2}
+        for k in drop:
+            del req[k]
+        return json.dumps(req)
+
+    stdin = "\n".join([request("a.tsv"), request("b.tsv", input_path=None),
+                       "", request("c.tsv"), "quit", request("d.tsv")])
+    proc = subprocess.run(
+        [sys.executable, "-m", "linearham_tpu_torch.cli", "serve",
+         "--device", "cpu"], input=stdin + "\n", capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "LINEARHAM_FAMILY_CACHE": str(tmp_path / "fc")})
+    assert proc.returncode == 0, proc.stderr
+    answers = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    assert [a["ok"] for a in answers] == [True, False, True]
+    assert "'input_path'" in answers[1]["error"]
+    for a, name in zip((answers[0], answers[2]), ("a.tsv", "c.tsv")):
+        assert a["output_path"] == str(tmp_path / name)
+        assert a["n_trees"] == 5 and a["kernel_launches"] == 0
+        assert len(_read(tmp_path / name)[1]) == 5
+    assert not (tmp_path / "b.tsv").exists()
+    assert not (tmp_path / "d.tsv").exists()       # after quit
+
+
+def test_serve_stops_on_a_device_error(fixtures_dir, tsv, tmp_path,
+                                       monkeypatch, capsys):
+    """A device failure is not a bad request: no answer line, exit 1, and
+    the requests after it are never read."""
+    import json
+
+    import linearham_tpu_torch.pipeline.run as run_mod
+    from linearham_tpu_torch import cli
+    from linearham_tpu_torch.utils.runtime import DeviceError
+
+    calls = []
+
+    def broken(*a, **k):
+        calls.append(a)
+        raise DeviceError("pruning kernel launch failed: cudaError 719")
+
+    monkeypatch.setattr(run_mod, "run_pipeline", broken)
+    req = json.dumps({"yaml_path": "y", "cluster_ind": 0,
+                      "hmm_param_dir": "h", "input_path": str(tsv),
+                      "output_path": str(tmp_path / "o.tsv")})
+    monkeypatch.setattr(sys, "stdin", io.StringIO(f"{req}\n{req}\n"))
+    assert cli.main(["serve", "--device", "cpu"]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "device failure" in out.err
+    assert len(calls) == 1

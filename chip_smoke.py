@@ -38,9 +38,22 @@ result line; nothing is caught and passed over):
 9. Bootstrap ASR (burn-in 0.1, subsample 0.05: 460 trees) on phase 5's
    10,240-row output, on the card in f64: internal sequences in ACGT, tips
    verbatim, ``.log``/``.ess`` byte-identical to the same call on the CPU.
-10. The result lines: the nvidia-smi line, the kernels JSON line (launch
-   counts of the pipeline, map and serve paths), and the {"ok": true, ...}
-   line last.  Before them the script checks that nothing it ran loaded
+10. The mixed-depth repertoire: 24 igh families of 10/25/50/100 sequences
+   sharing one germline directory, with ragged ensembles of 768-1,280
+   trees, and 2 igk families (a second bucket).  ``cli repertoire
+   --profile`` on the igh manifest as a cold subprocess (one launch, every
+   row written and finite); ``run_repertoire`` over all 26 families in
+   process (exactly 2 launches, one per bucket); the shallowest, the
+   deepest and an igk family against ``run_pipeline_arrays`` on the card
+   (<= 1e-4 nats); a stacked launch of 64 trees from each of three
+   families against the plain walk (KERNEL_TOL); the deepest family's
+   first 256 trees against the plain f64 path (<= 1 nat); then
+   ``python -m linearham_tpu_torch.workflow --cluster-indices 0`` twice on
+   the bench family with a pre-placed 1,024-tree ensemble (the second run
+   up to date).
+11. The result lines: the nvidia-smi line, the kernels JSON line (launch
+   counts of the pipeline, map, serve, repertoire and workflow paths), and
+   the {"ok": true, ...} line last.  Before them the script checks that nothing it ran loaded
    jax: the port's synthetic inputs and the family FASTA come through
    linearham_tpu_torch.utils.synth, the port's door to the JAX package's
    numpy-only host modules.
@@ -49,6 +62,7 @@ result line; nothing is caught and passed over):
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -63,6 +77,12 @@ SERVE_TREES = 1024         # the reference's default ensemble size
 # Workflow defaults (linearham_tpu/workflow.py:175-176): 460 of 10,240 rows.
 ASR_BURNIN, ASR_SUBSAMPLE, ASR_TREES = 0.1, 0.05, 460
 PI_FIXTURE = [0.17, 0.19, 0.25, 0.39]
+# Phase 10: (locus, sequences, trees, mutation rate) per family.
+REPERTOIRE = [("igh", (10, 25, 50, 100)[i % 4], 768 + 512 * i // 23,
+               0.02 + 0.0025 * i) for i in range(24)] \
+    + [("igk", 20, 1000, 0.03), ("igk", 60, 900, 0.05)]
+REPERTOIRE_PLAIN_TREES = 64     # per family, stacked launch vs plain walk
+REPERTOIRE_F64_TREES = 256      # deepest family, f32 vs plain f64
 SAMPLED_COLS = {"NaiveSequence", "VGene", "V5pDel", "V3pDel",
                 "VFwkInsertion", "VDInsertion", "DGene", "D5pDel", "D3pDel",
                 "DJInsertion", "JGene", "J5pDel", "J3pDel", "JFwkInsertion"}
@@ -615,6 +635,220 @@ def bootstrap_asr(torch, tmp, files, pipeline_tsv):
     return times["cuda"]
 
 
+def repertoire(torch, tmp, files):
+    phase(10, "mixed-depth repertoire: one kernel launch per bucket")
+    import numpy as np
+
+    from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.ops.forward import forward
+    from linearham_tpu_torch.ops.gtr import GTREigen
+    from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
+                                                         run_repertoire)
+    from linearham_tpu_torch.pipeline.run import (prepare_ensemble,
+                                                  run_pipeline_arrays)
+    from linearham_tpu_torch.utils.synth import (load_tree_samples,
+                                                 write_repertoire_inputs)
+
+    t0 = time.perf_counter()
+    reps = write_repertoire_inputs(os.path.join(tmp, "repertoire"),
+                                   REPERTOIRE, seed=0)
+    igh, igk = reps["igh"], reps["igk"]
+    n_igh = sum(n for loc, _, n, _ in REPERTOIRE if loc == "igh")
+    print(f"inputs written (untimed) in {time.perf_counter() - t0:.1f}s: "
+          f"{len(igh.families)} igh families ({n_igh} trees), "
+          f"{len(igk.families)} igk")
+
+    # The CLI, cold: a fresh family cache, a fresh process.
+    cache = os.path.join(tmp, "repertoire_cache")
+    env = {**os.environ, "LINEARHAM_FAMILY_CACHE": cache, "PYTHONPATH": REPO}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "linearham_tpu_torch.cli", "repertoire",
+         "--families", igh.manifest, "--hmm-param-dir", igh.gene_dir,
+         "--num-rates", "4", "--profile", "--device", "cuda"],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli repertoire failed:\n"
+                                f"{proc.stderr[-3000:]}")
+    print(f"cli repertoire: rc 0, subprocess wall {cli_wall:.1f}s")
+    print(f"  {proc.stdout.strip()}")
+    for line in proc.stderr.splitlines():
+        if line.startswith("#"):
+            print(f"  {line}")
+    check(proc.stdout.startswith(f"repertoire ok: {len(igh.families)} "
+                                 f"families, {n_igh} trees in "),
+          "cli repertoire closing line")
+    cli_launches = int(proc.stderr.split(
+        "# pruning-kernel launches: ")[1].split()[0])
+    check(cli_launches == 1, f"cli repertoire: {cli_launches} launches")
+    for fam_files, out, (_, _, n, _) in zip(igh.families, igh.outputs,
+                                            REPERTOIRE):
+        header, rows = read_tsv(out)
+        check(len(rows) == n, f"{out}: {len(rows)} rows, want {n}")
+        for c in ("LHLogLikelihood", "LogWeight"):
+            i = header.index(c)
+            check(all(np.isfinite(float(r[i])) for r in rows),
+                  f"{out}: non-finite {c}")
+        i = header.index("NaiveSequence")
+        check(all(len(r[i]) == fam_files.family.n_sites for r in rows),
+              f"{out}: NaiveSequence of the wrong length")
+    print(f"every family's TSV has all its rows; LHLogLikelihood and "
+          f"LogWeight finite")
+
+    # In process: all 26 families, two buckets.
+    os.environ["LINEARHAM_FAMILY_CACHE"] = cache
+    tasks = []
+    for rep in (igh, igk):
+        for fam_files in rep.families:
+            tasks.append(FamilyTask(
+                hmm=cached_phylo_hmm(fam_files.yaml_path, 0,
+                                     fam_files.gene_dir, device="cuda",
+                                     dtype=torch.float32),
+                samples=load_tree_samples(fam_files.trees_path)))
+    n_trees = sum(t.samples.n_samples for t in tasks)
+    timings = {}
+    torch.cuda.synchronize()
+    pruning_cuda.launches = 0
+    t0 = time.perf_counter()
+    results = run_repertoire(tasks, num_rates=4, seed=0, device="cuda",
+                             dtype=torch.float32, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = pruning_cuda.launches
+    check(launches == 2, f"run_repertoire launched {launches} kernels, "
+                         "want 2 (one per bucket)")
+    stages = {k: round(v, 4) for k, v in timings.items()}
+    print(f"run_repertoire: {len(tasks)} families, {n_trees} trees, 2 "
+          f"buckets: wall {wall:.3f}s, {n_trees / wall:.1f} trees/s, kernel "
+          f"launches {launches}")
+    print(f"stages (s): {json.dumps(stages)}")
+    for t, r in zip(tasks, results):
+        check(r.loglik.shape == (t.samples.n_samples,)
+              and bool(np.isfinite(r.loglik).all()),
+              "non-finite or missing repertoire log-likelihoods")
+
+    # Against the single-family pipeline on the card.
+    shallow, deep, light = 0, 3, len(igh.families)
+    for name, f in (("shallowest igh", shallow), ("deepest igh", deep),
+                    ("igk", light)):
+        t = tasks[f]
+        single = run_pipeline_arrays(t.hmm, t.samples, 4,
+                                     chunk_size=BENCH["chunk"])
+        dll = float(np.abs(results[f].loglik - single.lh_loglik).max())
+        print(f"{name} ({t.hmm.xmsa.matrix.shape[0] - 1} seqs, "
+              f"{t.samples.n_samples} trees): repertoire vs pipeline "
+              f"max|dLHLogLikelihood| {dll:.3e} nats (bound "
+              f"{CACHE_LL_BOUND})")
+        check(dll <= CACHE_LL_BOUND, f"{name}: repertoire != pipeline")
+
+    def stacked_launch_args(group, n=None):
+        """(stacked schedule, kernel arguments) of the first ``n`` trees of
+        each family of ``group``, as one launch."""
+        preps = [prepare_ensemble(t.hmm, t.samples[:n], 4) for t in group]
+        stacked = pruning_cuda.stack_schedules(
+            [p[0] for p in preps],
+            [np.asarray(t.hmm.xmsa.matrix, np.int32) for t in group])
+
+        def put(a):
+            a = np.ascontiguousarray(a)
+            return torch.as_tensor(
+                a, dtype=torch.float32 if a.dtype.kind == "f"
+                else torch.int32, device="cuda")
+
+        s = stacked.sched
+        return stacked, [
+            GTREigen(*(put(np.concatenate(parts))
+                       for parts in zip(*(p[1] for p in preps)))),
+            put(np.concatenate([t.samples.pi[:n] for t in group])),
+            put(np.concatenate([p[2] for p in preps])), put(stacked.codes),
+            put(s.src), put(s.penc), put(s.length), put(s.root), s.n_slots]
+
+    # A stacked launch of three families (unequal N, rows and X) vs plain.
+    k = REPERTOIRE_PLAIN_TREES
+    stacked, args = stacked_launch_args(
+        [tasks[f] for f in (shallow, deep, light)], k)
+    s = stacked.sched
+    got = pruning_cuda._launch(*args)
+    want = pruning_cuda.site_log_likelihoods_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+    print(f"stacked launch, {k} trees x 3 families (N {s.n_entries}, "
+          f"n_slots {s.n_slots}, rows {stacked.codes.shape[0]}, X "
+          f"{stacked.n_cols} -> {stacked.codes.shape[1]}): "
+          f"max|kernel-plain| {err:.3e}, within {KERNEL_TOL}: {ok}")
+    check(ok, f"stacked launch disagrees with plain ({err:.3e})")
+    stacked_ms = cuda_ms(torch, lambda: pruning_cuda._launch(*args), 10)
+    stacked_plain_ms = cuda_ms(
+        torch, lambda: pruning_cuda.site_log_likelihoods_plain(*args), 3)
+    print(f"time of that stacked launch: kernel {stacked_ms:.3f} ms, plain "
+          f"{stacked_plain_ms:.3f} ms (median, CUDA events)")
+
+    # The igh bucket's whole stacked launch, timed.
+    stacked, args = stacked_launch_args(tasks[:len(igh.families)])
+    s = stacked.sched
+    bucket_ms = cuda_ms(torch, lambda: pruning_cuda._launch(*args), 5)
+    real = sum(int((s.penc[stacked.trees(f)] != (s.n_slots - 1) * 4 + 3)
+                   .sum()) for f in range(len(igh.families)))
+    print(f"igh bucket launch: T={s.n_trees}, N={s.n_entries}, n_slots "
+          f"{s.n_slots}, X={stacked.codes.shape[1]}: {bucket_ms:.3f} ms "
+          f"(median of 5, CUDA events); real entries "
+          f"{real / (s.n_trees * s.n_entries):.3f} of the walked ones")
+
+    # The deepest family's first trees, f32 repertoire vs plain f64.
+    n_ref = REPERTOIRE_F64_TREES
+    deep_files = igh.families[deep]
+    hmm64, emis = plain_f64_emissions(
+        torch, deep_files.yaml_path, deep_files.gene_dir,
+        load_tree_samples(deep_files.trees_path)[:n_ref])
+    ll64 = forward(hmm64.trans, emis, hmm64.heavy)[0].cpu().numpy()
+    dll = float(np.abs(ll64 - results[deep].loglik[:n_ref]).max())
+    print(f"deepest family, f32 repertoire vs f64 plain, first {n_ref} "
+          f"trees: max|dLHLogLikelihood| {dll:.4e} nats (bound "
+          f"{F32_LOGLIK_BOUND})")
+    check(dll <= F32_LOGLIK_BOUND, "repertoire f32 error too large")
+
+    # The workflow on the bench family with a pre-placed 1,024-tree
+    # ensemble (phase 6's), --cluster-indices 0, twice.
+    wf_dir = os.path.join(tmp, "workflow")
+    os.makedirs(os.path.join(wf_dir, "cluster_0"))
+    shutil.copy(os.path.join(tmp, f"revbayes_{SERVE_TREES}.trees"),
+                os.path.join(wf_dir, "cluster_0", "revbayes_run.trees"))
+    argv = [sys.executable, "-m", "linearham_tpu_torch.workflow", "--outdir",
+            wf_dir, "--partis-yaml-file", files.yaml_path, "--hmm-param-dir",
+            files.gene_dir, "--cluster-indices", "0", "--device", "cuda"]
+    wf_launches = None
+    for run in ("first", "second"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                              cwd=REPO, timeout=600)
+        print(f"workflow, {run} run: rc {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f}s")
+        check(proc.returncode == 0, f"workflow failed:\n"
+                                    f"{proc.stderr[-3000:]}")
+        for line in proc.stdout.splitlines():
+            print(f"  {line}")
+        if run == "first":
+            check("batching 1 clusters" in proc.stdout,
+                  "the workflow did not batch its pipeline")
+            wf_launches = int(proc.stdout.split(
+                " pruning-kernel launch")[0].rsplit(" ", 1)[1])
+            check(wf_launches == 1, f"workflow: {wf_launches} launches")
+        else:
+            check("running" not in proc.stdout,
+                  "the second workflow run was not up to date")
+    out = os.path.join(wf_dir, "cluster_0")
+    _, rows = read_tsv(os.path.join(out, "lh_revbayes_run.trees"))
+    check(len(rows) == SERVE_TREES, f"workflow pipeline: {len(rows)} rows")
+    for name in ("linearham_run.trees", "linearham_run.log",
+                 "linearham_run.ess", "linearham_annotations_best.yaml",
+                 "aa_naive_seqs.fasta", "aa_naive_seqs.dnamap"):
+        check(os.path.exists(os.path.join(out, name)),
+              f"workflow did not write {name}")
+    print("workflow artifacts present; the second run was up to date")
+    return launches, wf_launches, cli_launches
+
+
 def main() -> int:
     import torch
 
@@ -630,7 +864,9 @@ def main() -> int:
         map_launches, _ = viterbi_through_kernel(torch, tmp, files)
         goldens(torch)
         bootstrap_asr(torch, tmp, files, hit_tsv)
-    phase(10, "result")
+        rep_launches, wf_launches, cli_launches = repertoire(torch, tmp,
+                                                            files)
+    phase(11, "result")
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     check(not jax_mods, f"the port loaded jax: {jax_mods[:5]}")
@@ -642,7 +878,10 @@ def main() -> int:
         "replaces": "linearham_tpu/ops/pruning_pallas.py:84",
         "launches": launches,
         "launches_by_path": {"pipeline": launches, "map": map_launches,
-                             "serve": serve_launches},
+                             "serve": serve_launches,
+                             "repertoire": rep_launches,
+                             "repertoire_cli": cli_launches,
+                             "workflow": wf_launches},
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -16,6 +16,11 @@ contract (src/linearham.cpp:268-455):
       chunk)
   python -m linearham_tpu_torch.cli serve    (one JSON pipeline request per
       stdin line, one JSON answer per stdout line)
+  python -m linearham_tpu_torch.cli repertoire --families manifest.tsv
+      --hmm-param-dir ... [--num-rates K] [--seed S] [--profile]
+      (many families, one pruning-kernel launch per bucket; the manifest
+      has one tab-separated line per family:
+      yaml_path, cluster_ind, trees_tsv, output_tsv)
 
 Every subcommand also takes ``--device`` (default: CUDA, which must be
 present; ``cpu`` runs the f64 conformance path) and ``--precision``.  Both
@@ -108,6 +113,24 @@ def build_parser() -> argparse.ArgumentParser:
              "({yaml_path, cluster_ind, hmm_param_dir, input_path, "
              "output_path, num_rates?, seed?, chunk_size?, precision?}), "
              "one JSON answer per stdout line; 'quit' ends it")
+    _device_args(p)
+
+    p = sub.add_parser(
+        "repertoire",
+        help="run many families' pipelines in one process: families are "
+             "bucketed by junction shape and each bucket's trees go through "
+             "one pruning-kernel launch")
+    p.add_argument("--families", required=True,
+                   help="manifest TSV, one family per line: "
+                        "yaml_path<TAB>cluster_ind<TAB>trees_tsv<TAB>"
+                        "output_tsv ('#' comments allowed)")
+    p.add_argument("--hmm-param-dir", required=True,
+                   help="directory of partis HMM germline parameter files")
+    p.add_argument("--seed", type=int, default=0, help="RNG seed")
+    p.add_argument("--num-rates", type=int, default=4,
+                   help="number of gamma rate categories")
+    p.add_argument("--profile", action="store_true",
+                   help="print per-stage wall-clock timings to stderr")
     _device_args(p)
 
     p = sub.add_parser(
@@ -220,6 +243,69 @@ def _warmup(args, dtype) -> int:
     return 0
 
 
+def read_manifest(path: str) -> list:
+    """The repertoire manifest's (yaml_path, cluster_ind, trees_tsv,
+    output_tsv) rows; blank lines and '#' comments are skipped."""
+    rows = []
+    with open(path) as fh:
+        for ln in fh:
+            ln = ln.strip()
+            if not ln or ln.startswith("#"):
+                continue
+            parts = ln.split("\t")
+            if len(parts) != 4:
+                raise SystemExit(
+                    f"error: manifest line needs 4 tab-separated "
+                    f"fields (yaml, cluster_ind, trees, out): {ln!r}")
+            rows.append((parts[0], int(parts[1]), parts[2], parts[3]))
+    if not rows:
+        raise SystemExit("error: empty family manifest")
+    return rows
+
+
+def _repertoire(args, dtype) -> int:
+    """Build every family of the manifest (through the family cache), run
+    them with one kernel launch per bucket, and write each family's TSV."""
+    from linearham_tpu.io.trees_tsv import load_tree_samples
+    from linearham_tpu.utils.profiling import StageTimer
+    from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
+                                                         run_repertoire,
+                                                         write_family_output)
+
+    t0 = time.perf_counter()
+    rows = read_manifest(args.families)
+    timer = StageTimer()
+    tasks = []
+    for yaml_path, ci, trees, _ in rows:
+        with timer.stage("load_trees_tsv"):
+            samples = load_tree_samples(trees)
+        with timer.stage("build_hmm"):
+            hmm = cached_phylo_hmm(yaml_path, ci, args.hmm_param_dir,
+                                   seed=args.seed, device=args.device,
+                                   dtype=dtype)
+        tasks.append(FamilyTask(hmm=hmm, samples=samples))
+    timings = timer.as_dict()
+    results = run_repertoire(tasks, num_rates=args.num_rates, seed=args.seed,
+                             device=args.device, dtype=dtype,
+                             timings=timings)
+    t1 = time.perf_counter()
+    for (_, _, _, out_path), task, res in zip(rows, tasks, results):
+        write_family_output(task, res, args.num_rates, out_path)
+    timings["write_tsv"] = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    total = sum(t.samples.n_samples for t in tasks)
+    if args.profile:
+        for k, v in timings.items():
+            print(f"#   {k}: {v * 1e3:.1f}ms", file=sys.stderr)
+        print(f"# pruning-kernel launches: {pruning_cuda.launches}",
+              file=sys.stderr)
+    print(f"repertoire ok: {len(tasks)} families, {total} trees in "
+          f"{wall:.2f}s ({total / wall:.1f} trees/s aggregate)")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # Accept the reference's '--compute-logl' style subcommand spelling.
@@ -236,6 +322,8 @@ def main(argv=None) -> int:
     dtype = resolve_dtype(args.precision, args.device)
     if args.subcommand == "warmup":
         return _warmup(args, dtype)
+    if args.subcommand == "repertoire":
+        return _repertoire(args, dtype)
     if args.subcommand == "pipeline":
         from linearham_tpu_torch.pipeline.run import run_pipeline
 

@@ -36,7 +36,8 @@ from linearham_tpu_torch.ops.ffbs import (SampledPath, path_to_numpy,
 from linearham_tpu_torch.ops.forward import ForwardCache, forward, widen_cache
 from linearham_tpu_torch.ops.gtr import (GTREigen, gamma_category_rates,
                                         gtr_eigen)
-from linearham_tpu_torch.ops.pruning_cuda import site_log_likelihoods
+from linearham_tpu_torch.ops.pruning_cuda import (check_schedule,
+                                                  site_log_likelihoods)
 from linearham_tpu_torch.ops.viterbi import viterbi
 from linearham_tpu_torch.utils.runtime import (full_f32_matmuls,
                                                resolve_device, resolve_dtype,
@@ -154,14 +155,30 @@ def phylo_step(trans, consts, xmsa_rows, naive_bases, sched: dict,
                eig: GTREigen, pi, rates,
                generator: Optional[torch.Generator], heavy: bool,
                n_slots: int):
-    """One pipeline step over a tree batch.
+    """One pipeline step over a tree batch: one pruning launch, then
+    ``phylo_step_from_site_ll``.
 
     Returns (loglik [T], xmsa emission [T, X], sampled path or None).
     """
-    emis, site_ll_corr = phylo_emissions(
-        consts, xmsa_rows, naive_bases, sched, eig, pi, rates, heavy,
-        n_slots)
-    loglik, cache = forward(trans, emis, heavy)
+    site_ll = site_log_likelihoods(
+        eig, pi, rates, xmsa_rows, sched["sched_src"], sched["sched_penc"],
+        sched["sched_len"], sched["sched_root"], n_slots)
+    return phylo_step_from_site_ll(trans, consts, naive_bases, site_ll, pi,
+                                   generator, heavy)
+
+
+def phylo_step_from_site_ll(trans, consts, naive_bases, site_ll, pi,
+                            generator: Optional[torch.Generator],
+                            heavy: bool):
+    """The step after pruning: naive-prior correction, region emissions,
+    forward, then FFBS when a generator is given.  ``site_ll`` [T, X] may be
+    a slice of a larger launch's output (the repertoire path).
+
+    Returns (loglik [T], xmsa emission [T, X], sampled path or None).
+    """
+    site_ll_corr = naive_prior_correction(site_ll, pi, naive_bases)
+    loglik, cache = forward(trans, region_emissions(site_ll_corr, consts,
+                                                    heavy), heavy)
     path = sample_path(generator, trans, cache, heavy) \
         if generator is not None else None
     return loglik, torch.exp(site_ll_corr), path
@@ -205,19 +222,6 @@ def load_host_products(yaml_path: str, cluster_ind: int,
     genes = load_gene_map(hmm_param_dir)
     msa = cluster.msa_codes(next(iter(genes.values())).alphabet + "N")
     return host_products(cluster, genes, msa)
-
-
-def check_schedule(sched: PruningSchedule, n_rows: int) -> None:
-    """Raise unless every schedule index is in range: the kernel trusts
-    them as addresses."""
-    is_tip = (sched.penc & 1) == 1
-    parent = sched.penc >> 2
-    bad = (sched.penc < 0) | (parent >= sched.n_slots) | (sched.src < 0) \
-        | np.where(is_tip, sched.src >= n_rows, sched.src >= sched.n_slots)
-    if bad.any() or (sched.root < 0).any() \
-            or (sched.root >= sched.n_slots).any():
-        raise ValueError("pruning schedule indexes outside the xMSA rows or "
-                         "the live slots")
 
 
 @dataclass
@@ -337,6 +341,13 @@ class PhyloHMM(nn.Module):
         return phylo_step(self.trans, self.consts, self.xmsa_rows,
                           self.naive_bases, sched_t, eig_t, pi_t, rates_t,
                           generator, self.heavy, n_slots)
+
+    def step_from_site_ll(self, site_ll, pi_t,
+                          generator: Optional[torch.Generator]):
+        """phylo_step_from_site_ll with this family's constants."""
+        return phylo_step_from_site_ll(self.trans, self.consts,
+                                       self.naive_bases, site_ll, pi_t,
+                                       generator, self.heavy)
 
     def map_step(self, sched_t: dict, eig_t: GTREigen, pi_t, rates_t,
                  n_slots: int):

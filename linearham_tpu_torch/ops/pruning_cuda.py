@@ -16,14 +16,25 @@ Not carried over from the TPU wrapper: VMEM/SMEM block sizing, equal-shape
 tree chunking, the R=1 category duplication (a Mosaic broadcast limit) and
 site/tree padding -- the CUDA grid covers exactly T trees and masks the
 ragged site edge.
+
+``stack_schedules`` turns several families' schedules and xMSA row tables
+into the inputs of ONE launch (the repertoire path): the row tables are
+stacked into one code table, each family's tip entries are offset to its
+rows, and the families' trees are concatenated along T.  The kernel's
+interface is unchanged: it already reads one shared row table and per-tree
+tip row indices.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import List, Sequence
 
+import numpy as np
 import torch
 
+from linearham_tpu.io.schedule import PruningSchedule
 from linearham_tpu_torch.ops.gtr import GTREigen
 from linearham_tpu_torch.utils.runtime import DeviceError
 
@@ -50,6 +61,90 @@ def kernel_lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         _lib = lib
     return _lib
+
+
+def check_schedule(sched: PruningSchedule, n_rows: int) -> None:
+    """Raise unless every schedule index is in range: the kernel trusts
+    them as addresses."""
+    is_tip = (sched.penc & 1) == 1
+    parent = sched.penc >> 2
+    bad = (sched.penc < 0) | (parent >= sched.n_slots) | (sched.src < 0) \
+        | np.where(is_tip, sched.src >= n_rows, sched.src >= sched.n_slots)
+    if bad.any() or (sched.root < 0).any() \
+            or (sched.root >= sched.n_slots).any():
+        raise ValueError("pruning schedule indexes outside the xMSA rows or "
+                         "the live slots")
+
+
+@dataclass
+class StackedSchedule:
+    """Several families' pruning inputs as one launch's (``stack_schedules``).
+
+    Family ``f`` owns trees ``tree_offsets[f]:tree_offsets[f+1]`` of
+    ``sched`` and rows ``row_offsets[f]:row_offsets[f+1]`` of ``codes``; its
+    real sites are the first ``n_cols[f]`` columns of the output.
+    """
+
+    codes: np.ndarray            # [sum_f n_rows_f + 1, X_max] int32
+    sched: PruningSchedule       # [sum_f T_f, N_max], bucket n_slots
+    tree_offsets: np.ndarray     # [F + 1]
+    row_offsets: np.ndarray      # [F + 1]
+    n_cols: List[int]            # X_f
+
+    def trees(self, f: int) -> slice:
+        return slice(int(self.tree_offsets[f]), int(self.tree_offsets[f + 1]))
+
+
+def stack_schedules(scheds: Sequence[PruningSchedule],
+                    row_tables: Sequence[np.ndarray]) -> StackedSchedule:
+    """Stack families' schedules and xMSA row tables for one launch.
+
+    * Rows: one table [sum_f n_rows_f + 1, X_max]; a family's columns past
+      its own X_f, and the last row, hold code 4 (N, a message of ones).
+    * Entries: each family's [T_f, N_f] schedule keeps its entries at their
+      positions (so the every-4th-entry renormalisation lands where it does
+      in a launch of that family alone); its tip entries' ``src`` move by
+      the family's row offset, and its own sink padding moves to the
+      bucket-wide sink (slot ``n_slots - 1`` of the largest ``n_slots``).
+      Entries past N_f are sink padding too (io/schedule.py's convention,
+      ``penc = sink*4 + 2 + 1``, length 0) whose tip row is the all-N
+      row: the message is exactly ones, its renormalisation adds log 1 = 0,
+      and real sites come out as in a launch of the family alone.
+    * ``src`` stays int32: offsets pass 32,767 rows in a large repertoire.
+
+    Every index is checked against the stacked table before it can reach
+    the kernel.
+    """
+    if not scheds or len(scheds) != len(row_tables):
+        raise ValueError("stack_schedules needs one row table per schedule")
+    n_entries = max(s.n_entries for s in scheds)
+    n_slots = max(s.n_slots for s in scheds)
+    pad = (n_slots - 1) * 4 + 2 + 1
+    X = max(r.shape[1] for r in row_tables)
+    row_off = np.cumsum([0] + [r.shape[0] for r in row_tables])
+    tree_off = np.cumsum([0] + [s.n_trees for s in scheds])
+    codes = np.full((int(row_off[-1]) + 1, X), 4, np.int32)
+    T = int(tree_off[-1])
+    src = np.full((T, n_entries), codes.shape[0] - 1, np.int32)
+    penc = np.full((T, n_entries), pad, np.int32)
+    length = np.zeros((T, n_entries))
+    root = np.empty(T, np.int32)
+    for f, (s, rows) in enumerate(zip(scheds, row_tables)):
+        codes[row_off[f]:row_off[f + 1], :rows.shape[1]] = rows
+        t = slice(tree_off[f], tree_off[f + 1])
+        n = s.n_entries
+        own_penc = np.asarray(s.penc, np.int32)
+        src[t, :n] = np.where((own_penc & 1) == 1, s.src + row_off[f], s.src)
+        penc[t, :n] = np.where(own_penc == (s.n_slots - 1) * 4 + 2 + 1, pad,
+                               own_penc)
+        length[t, :n] = s.length
+        root[t] = s.root
+    stacked = PruningSchedule(src=src, penc=penc, length=length, root=root,
+                              n_slots=n_slots)
+    check_schedule(stacked, codes.shape[0])
+    return StackedSchedule(codes=codes, sched=stacked, tree_offsets=tree_off,
+                           row_offsets=row_off,
+                           n_cols=[r.shape[1] for r in row_tables])
 
 
 def site_log_likelihoods(

@@ -29,7 +29,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "linearham_tpu_torch.ops.asr, linearham_tpu_torch.ops.viterbi, "
         "linearham_tpu_torch.models, linearham_tpu_torch.models.simple_hmm, "
         "linearham_tpu_torch.compiler.family_cache, "
-        "linearham_tpu_torch.postprocess.bootstrap_asr\n"
+        "linearham_tpu_torch.postprocess.bootstrap_asr, "
+        "linearham_tpu_torch.parallel.repertoire, "
+        "linearham_tpu_torch.parallel.multihost, "
+        "linearham_tpu_torch.workflow\n"
         "print(sorted(m for m in sys.modules "
         "if m == 'jax' or m.startswith(('jax.', 'jaxlib'))))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -13,12 +13,20 @@ result line; nothing is caught and passed over):
    path's shapes: a 100-sequence family at T=4096, R=4; R=1 with every
    branch length 0 (no NaN, impossible sites hugely negative); an all-N
    tip row; a 312-sequence family at T=64.  Both are timed at the first
-   shape (CUDA events, median of several launches).
+   shape (CUDA events, median of several launches).  Then the f64
+   instantiation (its 64-site tile) against the f64 plain walk (rtol =
+   atol = 1e-9) at the first shape and the 312-sequence one, timed at the
+   first shape beside the f64 plain walk.
 4. The posterior-ensemble pipeline file to file at bench scale (igh,
    100 sequences, 10,240 trees, 4 rates, chunk 4096) through the port's
    run_pipeline, with the kernel's launch count read around it; then the
    first 512 trees through the plain f64 path on the card for the f32
    error bound, and a timed device step split into pruning vs the rest.
+   Then the same file in f64 (``precision="f64"``, through the kernel's
+   f64 instantiation): trees/s, launches, its first 512 trees against the
+   plain f64 path (<= 1e-6 nats), and f32 against f64 LHLogLikelihood and
+   LogWeight over the first 4,096 trees (max |d|, its spread about the
+   mean, the importance-weight ESS in each).
 5. The family disk cache: the bench pipeline twice into a fresh cache
    directory (a miss, then a hit); build_hmm of each, and the two TSVs
    equal in every non-sampled column, LHLogLikelihood within 1e-4 nats.
@@ -33,8 +41,9 @@ result line; nothing is caught and passed over):
    card for the first 512 trees (|dMAP| <= 1 nat, MAP <= log-likelihood),
    timed; ``map_annotation`` on one tree.
 8. Goldens on the card in f64: SimpleHMM -42.8027747544 / -37.1354672701,
-   TreeBatch pruning -55.73483; ``map_annotation`` on the phylo fixture
-   (card, f32 through the kernel) equal to the CPU's (f64).
+   PhyloHMM -75.8136 / -75.1122515055 through the f64 kernel (exactly one
+   launch each), TreeBatch pruning -55.73483; ``map_annotation`` on the
+   phylo fixture (card, f32 through the kernel) equal to the CPU's (f64).
 9. Bootstrap ASR (burn-in 0.1, subsample 0.05: 460 trees) on phase 5's
    10,240-row output, on the card in f64: internal sequences in ACGT, tips
    verbatim, ``.log``/``.ess`` byte-identical to the same call on the CPU.
@@ -51,9 +60,23 @@ result line; nothing is caught and passed over):
    ``python -m linearham_tpu_torch.workflow --cluster-indices 0`` twice on
    the bench family with a pre-placed 1,024-tree ensemble (the second run
    up to date).
-11. The result lines: the nvidia-smi line, the kernels JSON line (launch
-   counts of the pipeline, map, serve, repertoire and workflow paths), and
-   the {"ok": true, ...} line last.  Before them the script checks that nothing it ran loaded
+11. The mesh on the card (parallel/mesh.py, parallel/dryrun.py): (i) an
+   NCCL group of one in this process, ``run_repertoire(mesh=make_mesh(1,
+   1))`` on phase 10's 26 families equal to the run without a mesh (2
+   launches, the same samples); (ii) ``dryrun_multigpu(2)`` over gloo, both
+   ranks on cuda:0 (NCCL refuses two ranks on one card), then two gloo
+   ranks sharing cuda:0 run the 26 families from phase 10's warm family
+   cache under a (2, 1) and a (1, 2) mesh: every rank's f32
+   log-likelihoods within rel 2e-6 of phase 10's (a tree split changes the
+   post-pruning batch), the kernel's rows of each share bitwise equal to a
+   launch over the whole bucket, six families also in f64 within 1e-6
+   nats of their unsharded run, the same samples under (2, 1), one launch
+   per non-empty bucket share, the wall and the gather's share of it per
+   rank; (iii) with two or more GPUs, the dry run over NCCL on up
+   to four of them (else it says it did not run).
+12. The result lines: the nvidia-smi line, the kernels JSON line (launch
+   counts of the pipeline, map, serve, repertoire, workflow, mesh and f64
+   paths, the f64 kernel's time), and the {"ok": true, ...} line last.  Before them the script checks that nothing it ran loaded
    jax: the port's synthetic inputs and the family FASTA come through
    linearham_tpu_torch.utils.synth, the port's door to the JAX package's
    numpy-only host modules.
@@ -70,6 +93,15 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 5e-4          # rtol = atol, kernel vs plain, both f32
+F64_KERNEL_TOL = 1e-9      # rtol = atol, kernel vs plain, both f64
+F64_LOGLIK_BOUND = 1e-6    # nats, f64 pipeline (kernel) vs f64 plain path
+MESH_LL_BOUND = 1e-6       # nats, a mesh's f64 repertoire vs unsharded
+# A mesh that splits trees changes each family's post-pruning batch, and
+# cuBLAS's f32 sums then take another order: a few f32 ulps of |ll| ~ 1e4
+# (rel 4.755e-07 measured on an H100 at 700 W).  The kernel's rows are held
+# bitwise equal to the unsplit launch's, so the drift is pinned after it.
+MESH_F32_RTOL = 2e-6
+MESH_F64_FAMILIES = (0, 3, 12, 23, 24, 25)   # phase 10 indices, run in f64
 F32_LOGLIK_BOUND = 1.0     # nats, f32 pipeline vs f64 plain path
 BENCH = dict(n_seqs=100, n_trees=10240, chunk=4096, num_rates=4)
 CACHE_LL_BOUND = 1e-4      # nats, family-cache hit vs miss
@@ -136,8 +168,9 @@ def build():
             print(f"  ptxas: {line.strip()}")
 
 
-def family_batch(torch, n_seqs, n_trees, num_rates, seed):
-    """(hmm f32 on cuda, schedule, eig, pi, rates) for a synthetic family."""
+def family_batch(torch, n_seqs, n_trees, num_rates, seed, dtype=None):
+    """(hmm on cuda in ``dtype``, default f32; schedule, eig, pi, rates)
+    for a synthetic family."""
     from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
     from linearham_tpu_torch.pipeline.run import prepare_ensemble
     from linearham_tpu_torch.utils.synth import make_family, make_tree_samples
@@ -145,7 +178,8 @@ def family_batch(torch, n_seqs, n_trees, num_rates, seed):
     fam = make_family(n_seqs=n_seqs, seed=seed)
     hmm = PhyloHMM.from_parts(
         fam.locus, fam.flexbounds, fam.relpos, fam.genes, fam.msa,
-        fam.unique_ids, fam.n_sites, device="cuda", dtype=torch.float32)
+        fam.unique_ids, fam.n_sites, device="cuda",
+        dtype=dtype or torch.float32)
     samples = make_tree_samples(fam, n_trees, seed=seed)
     sched, eig, rates = prepare_ensemble(hmm, samples, num_rates)
     return hmm, sched, eig, samples.pi, rates
@@ -232,6 +266,37 @@ def kernel_vs_plain(torch):
     print(f"time at 100seq T=4096 R=4 (X={hmm.xmsa.n_cols}, "
           f"N={sched.n_entries}, n_slots={sched.n_slots}): kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events)")
+    return worst, ms, plain_ms
+
+
+def kernel_vs_plain_f64(torch):
+    """The f64 instantiation against the f64 plain walk, and its time."""
+    from linearham_tpu_torch.ops import pruning_cuda
+
+    worst, f64 = 0.0, torch.float64
+    for name, (n_seqs, T, seed) in (("100seq_T4096_R4", (100, 4096, 0)),
+                                    ("312seq_T64_R4", (312, 64, 1))):
+        args = kernel_args(*family_batch(torch, n_seqs, T, 4, seed, f64))
+        before = pruning_cuda.launches
+        got = pruning_cuda.site_log_likelihoods(*args)
+        want = pruning_cuda.site_log_likelihoods_plain(*args)
+        torch.cuda.synchronize()
+        check(pruning_cuda.launches == before + 1 and got.dtype == f64,
+              f"f64 {name}: not one f64 launch")
+        err = float((got - want).abs().max())
+        ok = torch.allclose(got, want, rtol=F64_KERNEL_TOL,
+                            atol=F64_KERNEL_TOL)
+        print(f"f64 {name}: max|kernel-plain| {err:.3e}  "
+              f"within {F64_KERNEL_TOL}: {ok}")
+        check(ok, f"f64 {name}: kernel disagrees with plain ({err:.3e})")
+        worst = max(worst, err)
+        if name.startswith("100seq"):
+            main_args = args
+    ms = cuda_ms(torch, lambda: pruning_cuda._launch(*main_args), 20)
+    plain_ms = cuda_ms(
+        torch, lambda: pruning_cuda.site_log_likelihoods_plain(*main_args), 5)
+    print(f"f64 time at 100seq T=4096 R=4: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms (median, CUDA events)")
     return worst, ms, plain_ms
 
 
@@ -330,7 +395,55 @@ def pipeline(torch, tmp):
     print(f"device step at T={chunk}: {step_ms:.3f} ms, of which "
           f"pruning kernel {prune_ms:.3f} ms, emissions+forward+FFBS "
           f"{step_ms - prune_ms:.3f} ms (median, CUDA events)")
-    return launches, files
+
+    # The same file in f64, through the kernel's f64 instantiation.
+    import numpy as np
+
+    out64 = os.path.join(tmp, "lh_f64.trees")
+    torch.cuda.synchronize()
+    before = pruning_cuda.launches
+    t0 = time.perf_counter()
+    result64 = run_pipeline(yaml_path, 0, gene_dir, trees_path, out64,
+                            num_rates=BENCH["num_rates"], seed=0,
+                            chunk_size=chunk, precision="f64",
+                            device="cuda")
+    wall64 = time.perf_counter() - t0
+    launches64 = pruning_cuda.launches - before
+    check(launches64 == -(-n_trees // chunk),
+          f"the f64 pipeline launched {launches64} kernels")
+    header64, rows64 = read_tsv(out64)
+    check(header64 == header and len(rows64) == n_trees,
+          "the f64 TSV differs in shape")
+    lw_col = header.index("LogWeight")
+    ll32, ll64p = (np.array([float(r[col]) for r in rs])
+                   for rs in (rows, rows64))
+    lw32, lw64 = (np.array([float(r[lw_col]) for r in rs])
+                  for rs in (rows, rows64))
+    check(bool(np.isfinite(ll64p).all()), "non-finite f64 LHLogLikelihood")
+    print(f"f64 pipeline: {n_trees} trees, chunk {chunk}: wall "
+          f"{wall64:.3f}s, {n_trees / wall64:.1f} trees/s, kernel launches "
+          f"{launches64}")
+    print(f"stages (s): "
+          f"{json.dumps({k: round(v, 4) for k, v in result64.timings.items()})}")
+    d64 = float(np.abs(ll64p[:n_ref] - ll64.numpy()).max())
+    print(f"f64 pipeline (kernel) vs f64 plain, first {n_ref} trees: "
+          f"max|dLHLogLikelihood| = {d64:.4e} nats (bound "
+          f"{F64_LOGLIK_BOUND})")
+    check(d64 <= F64_LOGLIK_BOUND, "the f64 kernel path strays from plain")
+
+    def ess(lw):
+        e = np.exp(lw - lw.max())
+        return float(e.sum() ** 2 / (e * e).sum())
+
+    n_w = chunk
+    d = ll32[:n_w] - ll64p[:n_w]
+    print(f"f32 vs f64, first {n_w} trees: max|dLHLogLikelihood| "
+          f"{np.abs(d).max():.4e}, about its mean {d.mean():.4e}: max "
+          f"{np.abs(d - d.mean()).max():.4e}, std {d.std():.4e}; "
+          f"max|dLogWeight| {np.abs(lw32[:n_w] - lw64[:n_w]).max():.4e}; "
+          f"importance-weight ESS f32 {ess(lw32[:n_w]):.4f}, f64 "
+          f"{ess(lw64[:n_w]):.4f}")
+    return launches, files, launches64
 
 
 def read_tsv(path):
@@ -571,6 +684,27 @@ def goldens(torch):
           "(golden -55.73483)")
     check(abs(ll + 55.73483) <= 1e-5, "TreeBatch pruning golden")
 
+    # PhyloHMM through the kernel's f64 instantiation, one launch each.
+    from linearham_tpu_torch.ops import pruning_cuda
+
+    launches = 0
+    for yaml_name, want, tol in (
+            ("phylo_hmm_input.yaml", -75.8136, 1e-4),
+            ("phylo_hmm_input_extra.yaml", -75.1122515055,
+             1e-9 * 75.1122515055)):
+        h = PhyloHMM(os.path.join(fx, yaml_name), 0,
+                     os.path.join(fx, "hmm_params"), device="cuda",
+                     dtype=torch.float64)
+        h.init_phylo_parameters(newton, [1.0] * 6, PI_FIXTURE, 1.0, 4)
+        before = pruning_cuda.launches
+        got = h.log_likelihood()
+        n = pruning_cuda.launches - before
+        print(f"PhyloHMM {yaml_name}, f64 kernel: {got:.10f} (golden "
+              f"{want}), {n} launch")
+        check(n == 1, f"{yaml_name}: {n} launches, want 1")
+        check(abs(got - want) <= tol, f"{yaml_name} golden on the card")
+        launches += n
+
     # map_annotation on the card (f32, through the kernel) vs the CPU (f64).
     args = (os.path.join(fx, "phylo_hmm_input.yaml"), 0,
             os.path.join(fx, "hmm_params"))
@@ -585,6 +719,7 @@ def goldens(torch):
     check(anns["cuda"] == anns["cpu"], "card and CPU MAP annotations differ")
     check(abs(scores["cuda"] - scores["cpu"]) <= 1e-3,
           "card and CPU MAP scores differ")
+    return launches
 
 
 def bootstrap_asr(torch, tmp, files, pipeline_tsv):
@@ -846,7 +981,216 @@ def repertoire(torch, tmp, files):
         check(os.path.exists(os.path.join(out, name)),
               f"workflow did not write {name}")
     print("workflow artifacts present; the second run was up to date")
-    return launches, wf_launches, cli_launches
+    families = [(f.yaml_path, f.gene_dir, f.trees_path)
+                for rep in (igh, igk) for f in rep.families]
+    return launches, wf_launches, cli_launches, dict(
+        tasks=tasks, results=results, cache=cache, families=families)
+
+
+def naive_digest(result):
+    """One hash of a family's sampled naive sequences, in tree order."""
+    import hashlib
+
+    return hashlib.sha1("\n".join(a.naive_seq for a in result.annotations)
+                        .encode()).hexdigest()
+
+
+def share_site_ll_matches(torch, mesh, buckets, dtype):
+    """Whether every row of this rank's stacked launch over its share of
+    each bucket is bitwise equal to the same tree's row of one launch over
+    the whole bucket (``buckets``: lists of whole-family blocks; 4 rates,
+    run_repertoire's default)."""
+    from linearham_tpu.utils.profiling import StageTimer
+    from linearham_tpu_torch.parallel.mesh import (shard_family_batch,
+                                                   stacked_site_ll)
+
+    for blocks in buckets:
+        share = shard_family_batch(mesh, blocks)
+        if not share:
+            continue
+        whole, st_whole, _ = stacked_site_ll(blocks, 4, mesh.device, dtype,
+                                             StageTimer())
+        part, st_part, _ = stacked_site_ll(share, 4, mesh.device, dtype,
+                                           StageTimer())
+        at = {b.index: f for f, b in enumerate(blocks)}
+        for f, b in enumerate(share):
+            start = st_whole.trees(at[b.index]).start
+            cols = st_part.n_cols[f]
+            if not torch.equal(part[st_part.trees(f), :cols],
+                               whole[start + b.trees.start:
+                                     start + b.trees.stop, :cols]):
+                return False
+    return True
+
+
+def mesh_repertoire_rank(devices, payload):
+    """One rank of phase 11 (ii): phase 10's families from the warm family
+    cache in f32, and a subset of them built afresh in f64, through
+    ``run_repertoire`` under each mesh shape of the payload.  The f64 runs
+    are held here against this rank's own unsharded f64 run; after each
+    run, the kernel's rows of this rank's share are compared bit for bit
+    with a launch over each whole bucket."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.parallel.mesh import (FamilyBlock, make_mesh,
+                                                   shard_family_batch)
+    from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
+                                                         buckets_of,
+                                                         run_repertoire)
+    from linearham_tpu_torch.utils.synth import load_tree_samples
+
+    device = devices[dist.get_rank()]
+    families = payload["families"]
+    out = []
+    for dtype, idx in ((torch.float32, range(len(families))),
+                       (torch.float64, payload["f64_families"])):
+        tasks = [FamilyTask(
+            hmm=cached_phylo_hmm(families[i][0], 0, families[i][1],
+                                 device=device, dtype=dtype,
+                                 cache_dir=payload["cache"]),
+            samples=load_tree_samples(families[i][2])) for i in idx]
+        alone = run_repertoire(tasks, seed=0, device=device, dtype=dtype) \
+            if dtype == torch.float64 else None
+        for shape in payload["shapes"]:
+            mesh = make_mesh(*shape, devices=devices)
+            buckets = [[FamilyBlock(i, tasks[i],
+                                    slice(0, tasks[i].samples.n_samples))
+                        for i in b] for b in buckets_of(tasks)]
+            shares = [shard_family_batch(mesh, b) for b in buckets]
+            torch.cuda.synchronize(device)
+            dist.barrier()
+            pruning_cuda.launches = 0
+            timings = {}
+            t0 = time.perf_counter()
+            results = run_repertoire(tasks, seed=0, mesh=mesh, dtype=dtype,
+                                     timings=timings)
+            torch.cuda.synchronize(device)
+            wall, launches = time.perf_counter() - t0, pruning_cuda.launches
+            out.append({
+                "dtype": str(dtype).removeprefix("torch."), "shape": shape,
+                "wall": wall, "gather_s": mesh.gather_s, "timings": timings,
+                "launches": launches,
+                "expected_launches": sum(1 for share in shares if share),
+                "trees": sum(b.n_trees for share in shares for b in share),
+                "logliks": [r.loglik for r in results],
+                "naive": [naive_digest(r) for r in results],
+                "vs_alone": None if alone is None else max(
+                    float(np.abs(r.loglik - a.loglik).max())
+                    for r, a in zip(results, alone)),
+                "site_ll_bitwise": share_site_ll_matches(torch, mesh,
+                                                         buckets, dtype)})
+    return out
+
+
+def mesh_on_the_card(torch, rep):
+    phase(11, "the (fam, trees) mesh on the card")
+    import numpy as np
+    import torch.distributed as dist
+
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.parallel import multihost
+    from linearham_tpu_torch.parallel.dryrun import (dryrun_multigpu,
+                                                     free_port, launch_ranks)
+    from linearham_tpu_torch.parallel.mesh import make_mesh
+    from linearham_tpu_torch.parallel.repertoire import run_repertoire
+
+    tasks, want = rep["tasks"], rep["results"]
+    want_naive = [naive_digest(r) for r in want]
+
+    def max_dll(logliks):
+        return max(float(np.abs(a - w.loglik).max())
+                   for a, w in zip(logliks, want))
+
+    # (i) An NCCL group of one in this process.  The communicator is set
+    # up at the first collective: one small gather does that untimed.
+    t0 = time.perf_counter()
+    multihost.initialize(init_method=f"tcp://localhost:{free_port()}",
+                         world_size=1, rank=0, backend="nccl")
+    try:
+        mesh = make_mesh(1, 1)
+        dist.all_gather_object([None], 0, group=mesh.mesh_group)
+        setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        pruning_cuda.launches = 0
+        t0 = time.perf_counter()
+        got = run_repertoire(tasks, seed=0, mesh=mesh, dtype=torch.float32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        in_process = pruning_cuda.launches
+    finally:
+        dist.destroy_process_group()
+    dll = max_dll([r.loglik for r in got])
+    same = [naive_digest(r) for r in got] == want_naive
+    print(f"(i) NCCL group of one, mesh (1, 1) on {mesh.device}: group and "
+          f"communicator set-up {setup:.3f}s; wall {wall:.3f}s, "
+          f"{in_process} launches, gather {mesh.gather_s:.4f}s; "
+          f"vs no mesh: max|dLHLogLikelihood| {dll:.3e} nats, samples "
+          f"identical: {same}")
+    check(in_process == 2, f"(i): {in_process} launches, want 2")
+    check(dll <= MESH_LL_BOUND and same, "(i): the mesh of one differs")
+
+    # (ii) Two gloo ranks sharing cuda:0: the dry run, then the repertoire.
+    t0 = time.perf_counter()
+    dry = dryrun_multigpu(2, backend="gloo", devices=["cuda:0"] * 2,
+                          timeout=300)
+    print(f"(ii) dryrun_multigpu(2, gloo, cuda:0 x 2): "
+          f"{time.perf_counter() - t0:.1f}s as two subprocesses")
+    t0 = time.perf_counter()
+    ranks = launch_ranks(2, "chip_smoke:mesh_repertoire_rank", {
+        "cache": rep["cache"], "families": rep["families"],
+        "f64_families": MESH_F64_FAMILIES, "shapes": [(2, 1), (1, 2)]},
+        backend="gloo", devices=["cuda:0"] * 2, timeout=600)
+    print(f"two ranks on cuda:0: {len(tasks)} families in f32 and "
+          f"{len(MESH_F64_FAMILIES)} in f64 (built cold), each under (2, 1) "
+          f"then (1, 2): {time.perf_counter() - t0:.1f}s as two subprocesses")
+    rank_launches = sum(r["launches"] for runs in ranks for r in runs)
+    for rank, runs in enumerate(ranks):
+        for r in runs:
+            stages = {k: round(v, 4) for k, v in r["timings"].items()}
+            where = f"rank {rank}, {r['dtype']}, mesh {r['shape']}"
+            if r["dtype"] == "float32":
+                dll = max_dll(r["logliks"])
+                rel = max(float(np.abs(a / w.loglik - 1).max())
+                          for a, w in zip(r["logliks"], want))
+                same = r["naive"] == want_naive
+                versus = (f"vs phase 10: max|d| {dll:.3e} nats, max rel "
+                          f"{rel:.3e} (bound {MESH_F32_RTOL}), samples "
+                          f"identical: {same}")
+                check(rel <= MESH_F32_RTOL, f"{where}: rel {rel:.3e}")
+                check(same or r["shape"][1] > 1,
+                      f"{where}: samples differ under a families-only mesh")
+            else:
+                versus = (f"vs the unsharded f64 run: max|d| "
+                          f"{r['vs_alone']:.3e} nats (bound {MESH_LL_BOUND})")
+                check(r["vs_alone"] <= MESH_LL_BOUND,
+                      f"{where}: |d| {r['vs_alone']:.3e} nats")
+            print(f"  {where}: {r['trees']} trees of its own, wall "
+                  f"{r['wall']:.3f}s, gather {r['gather_s']:.3f}s "
+                  f"({r['gather_s'] / r['wall']:.1%} of the wall), launches "
+                  f"{r['launches']} (non-empty bucket shares "
+                  f"{r['expected_launches']}); {versus}; kernel rows "
+                  f"bitwise equal to the whole bucket's launch: "
+                  f"{r['site_ll_bitwise']}; stages (s) {json.dumps(stages)}")
+            check(r["launches"] == r["expected_launches"],
+                  f"{where}: {r['launches']} launches")
+            check(r["site_ll_bitwise"],
+                  f"{where}: the kernel's rows of a share differ from the "
+                  "whole bucket's launch")
+
+    # (iii) NCCL over several GPUs, one process each.
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= 2:
+        multi = dryrun_multigpu(min(n_gpu, 4), backend="nccl", timeout=300)
+        rank_launches += sum(r["launches"] for r in multi["reports"])
+    else:
+        print("(iii) NCCL over several GPUs: not run, this machine has one "
+              "GPU")
+    dry_launches = sum(r["launches"] for r in dry["reports"])
+    return in_process + rank_launches + dry_launches
 
 
 def main() -> int:
@@ -856,17 +1200,19 @@ def main() -> int:
     smi = environment(torch)
     build()
     worst, ms, plain_ms = kernel_vs_plain(torch)
+    worst64, f64_ms, f64_plain_ms = kernel_vs_plain_f64(torch)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
-        launches, files = pipeline(torch, tmp)
+        launches, files, f64_launches = pipeline(torch, tmp)
         hit_tsv, _ = family_cache(torch, tmp, files)
         serve_launches = warmup_and_serve(torch, tmp, files)
         map_launches, _ = viterbi_through_kernel(torch, tmp, files)
-        goldens(torch)
+        f64_launches += goldens(torch)
         bootstrap_asr(torch, tmp, files, hit_tsv)
-        rep_launches, wf_launches, cli_launches = repertoire(torch, tmp,
-                                                            files)
-    phase(11, "result")
+        rep_launches, wf_launches, cli_launches, rep = repertoire(
+            torch, tmp, files)
+        mesh_launches = mesh_on_the_card(torch, rep)
+    phase(12, "result")
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     check(not jax_mods, f"the port loaded jax: {jax_mods[:5]}")
@@ -881,10 +1227,15 @@ def main() -> int:
                              "serve": serve_launches,
                              "repertoire": rep_launches,
                              "repertoire_cli": cli_launches,
-                             "workflow": wf_launches},
+                             "workflow": wf_launches,
+                             "mesh": mesh_launches,
+                             "f64": f64_launches},
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
+        "f64_max_abs_err": worst64,
+        "f64_ms": f64_ms,
+        "f64_plain_ms": f64_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

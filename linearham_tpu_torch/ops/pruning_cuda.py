@@ -7,10 +7,11 @@ slot.  The output is the per-site rate-mixed log-likelihood [T, X].
 
 ``site_log_likelihoods`` dispatches on the device of its tensors: CPU
 tensors take ``site_log_likelihoods_plain``; CUDA tensors launch the
-hand-written kernel (``csrc/pruning.cu``) or raise.  The plain version
-follows the kernel's numerics exactly (P clamped at 0, renormalization on
-every 4th entry, the -inf-safe rate mix), so on one device the two agree to
-f32 roundoff.
+hand-written kernel (``csrc/pruning.cu``) or raise.  The kernel runs in f32
+or in f64 (all floating inputs in one of the two); the plain version
+follows its numerics exactly (P clamped at 0, renormalization on every 4th
+entry, the -inf-safe rate mix), so on one device the two agree to the
+roundoff of the dtype.
 
 Not carried over from the TPU wrapper: VMEM/SMEM block sizing, equal-shape
 tree chunking, the R=1 category duplication (a Mosaic broadcast limit) and
@@ -42,6 +43,7 @@ from linearham_tpu_torch.utils.runtime import DeviceError
 launches = 0
 
 SUPPORTED_RATES = (1, 2, 4, 8)
+KERNEL_DTYPES = {torch.float32: 4, torch.float64: 8}   # -> element bytes
 MAX_SHARED_BYTES = 232_448      # 227 KB: a Hopper block's shared-memory cap
 
 _lib = None
@@ -55,10 +57,11 @@ def kernel_lib() -> ctypes.CDLL:
 
         lib = load_library("pruning")
         lib.lh_pruning_smem_bytes.restype = ctypes.c_size_t
-        lib.lh_pruning_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.lh_pruning_launch.restype = ctypes.c_int
-        lib.lh_pruning_launch.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.lh_pruning_smem_bytes.argtypes = [ctypes.c_int] * 4
+        for entry in (lib.lh_pruning_launch, lib.lh_pruning_launch_f64):
+            entry.restype = ctypes.c_int
+            entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                              + [ctypes.c_void_p])
         _lib = lib
     return _lib
 
@@ -176,20 +179,24 @@ def site_log_likelihoods(
 
 def _launch(eig, pi, rates, row_codes, sched_src, sched_penc, sched_len,
             sched_root, n_slots) -> torch.Tensor:
+    """Check the inputs and launch the kernel in their float type (all f32
+    or all f64; a mix is refused by name).  The kernel fixes each type's
+    site tile (csrc/pruning.cu: 128 in f32, 64 in f64)."""
     global launches
     T, N = sched_src.shape
     n_rows, X = row_codes.shape
     R = rates.shape[1] if rates.dim() == 2 else -1
+    fdtype = eig.u.dtype if eig.u.dtype in KERNEL_DTYPES else torch.float32
     expect = {
-        "eig.u": (eig.u, torch.float32, (T, 4, 4)),
-        "eig.u_inv": (eig.u_inv, torch.float32, (T, 4, 4)),
-        "eig.lam": (eig.lam, torch.float32, (T, 4)),
-        "pi": (pi, torch.float32, (T, 4)),
-        "rates": (rates, torch.float32, (T, R)),
+        "eig.u": (eig.u, fdtype, (T, 4, 4)),
+        "eig.u_inv": (eig.u_inv, fdtype, (T, 4, 4)),
+        "eig.lam": (eig.lam, fdtype, (T, 4)),
+        "pi": (pi, fdtype, (T, 4)),
+        "rates": (rates, fdtype, (T, R)),
         "row_codes": (row_codes, torch.int32, (n_rows, X)),
         "sched_src": (sched_src, torch.int32, (T, N)),
         "sched_penc": (sched_penc, torch.int32, (T, N)),
-        "sched_len": (sched_len, torch.float32, (T, N)),
+        "sched_len": (sched_len, fdtype, (T, N)),
         "sched_root": (sched_root, torch.int32, (T,)),
     }
     for name, (a, dtype, shape) in expect.items():
@@ -204,18 +211,20 @@ def _launch(eig, pi, rates, row_codes, sched_src, sched_penc, sched_len,
                          f"is built for R in {SUPPORTED_RATES}")
 
     lib = kernel_lib()
-    need = lib.lh_pruning_smem_bytes(N, n_slots, R)
+    need = lib.lh_pruning_smem_bytes(N, n_slots, R, KERNEL_DTYPES[fdtype])
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"pruning kernel: {need} bytes of shared memory needed at "
-            f"N={N}, n_slots={n_slots}, R={R}; a block has at most "
-            f"{MAX_SHARED_BYTES}")
-    out = torch.empty((T, X), dtype=torch.float32, device=row_codes.device)
+            f"N={N}, n_slots={n_slots}, R={R}, {fdtype}; a block has at "
+            f"most {MAX_SHARED_BYTES}")
+    out = torch.empty((T, X), dtype=fdtype, device=row_codes.device)
     if T == 0 or X == 0:
         return out
+    entry = lib.lh_pruning_launch_f64 if fdtype == torch.float64 \
+        else lib.lh_pruning_launch
     with torch.cuda.device(row_codes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lh_pruning_launch(
+        rc = entry(
             row_codes.data_ptr(), sched_src.data_ptr(), sched_penc.data_ptr(),
             sched_len.data_ptr(), sched_root.data_ptr(), eig.u.data_ptr(),
             eig.u_inv.data_ptr(), eig.lam.data_ptr(), rates.data_ptr(),

@@ -1,32 +1,84 @@
-"""Host-side helpers for a repertoire spread over several processes.
+"""Multi-process data parallelism over clonal families.
 
-Counterpart of the host-side half of linearham_tpu/parallel/multihost.py.
-Families never communicate, so the pattern is fully independent execution:
-each process takes its ``process_slice`` of the family list and runs
-``run_repertoire`` on its own GPU; only the repertoire-wide summary needs
-one reduction across processes, a ``torch.distributed.all_reduce`` of four
-scalars.  The processes form a group the usual way, with the address,
-world size and rank given explicitly::
+Counterpart of linearham_tpu/parallel/multihost.py.  Processes form one
+``torch.distributed`` group, one process per GPU; ``initialize`` starts it
+(from torchrun's ``env://`` variables, or with the address, world size and
+rank given explicitly), and two patterns run on it:
 
-    torch.distributed.init_process_group(
-        "gloo", init_method="tcp://localhost:29500", world_size=n, rank=r)
-    mine = multihost.process_slice(all_families)
-    ...run_repertoire over ``mine``, then
-    multihost.pooled_repertoire_summary_multiprocess(logliks, rbs)
+* One mesh over every rank (``global_family_mesh``): every process passes
+  the same task list to ``run_repertoire(mesh=...)``, which shards each
+  bucket over the (fam, trees) mesh and hands every rank the whole
+  result::
+
+      multihost.initialize()                        # under torchrun
+      mesh = multihost.global_family_mesh(n_tree_shards=1)
+      results = run_repertoire(tasks, mesh=mesh)
+
+* Fully independent processes: each takes its ``process_slice`` of the
+  family list and runs ``run_repertoire`` alone on its own GPU; only the
+  repertoire-wide summary crosses processes, a
+  ``torch.distributed.all_reduce`` of four scalars
+  (``pooled_repertoire_summary_multiprocess``)::
+
+      mine = multihost.process_slice(all_families)
+      ...run_repertoire over ``mine``, then
+      multihost.pooled_repertoire_summary_multiprocess(logliks, rbs)
 
 Without a process group every helper acts as one process of one, so
-single-process callers need no branch.  The mesh half of the JAX module
-(``initialize``, ``global_family_mesh``: sharding one stacked bucket over a
-``(fam, trees)`` mesh of devices) is not ported here.
+single-process callers need no branch.
 """
 
 from __future__ import annotations
 
+from datetime import timedelta
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
+
+from linearham_tpu_torch.parallel.mesh import (GROUP_TIMEOUT, FamilyMesh,
+                                               local_cuda_index, make_mesh,
+                                               pooled_repertoire_summary,
+                                               span)
+
+
+def initialize(init_method: Optional[str] = None,
+               world_size: Optional[int] = None, rank: Optional[int] = None,
+               backend: Optional[str] = None,
+               timeout: Optional[timedelta] = None) -> None:
+    """Start the default process group (a no-op if one is running).
+
+    With no arguments it reads torchrun's ``env://`` variables
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).  ``backend`` defaults to
+    NCCL when CUDA is present, else gloo; under NCCL the process first
+    takes its GPU (``LOCAL_RANK``, else the rank modulo the GPUs).  Ranks
+    that share one GPU must use gloo: NCCL refuses them.  ``timeout``
+    (default ``mesh.GROUP_TIMEOUT``) bounds every collective of the group.
+    """
+    if dist.is_initialized():
+        return
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(local_cuda_index(rank or 0))
+    dist.init_process_group(
+        backend, init_method=init_method or "env://",
+        world_size=-1 if world_size is None else world_size,
+        rank=-1 if rank is None else rank,
+        timeout=timeout or GROUP_TIMEOUT)
+
+
+def global_family_mesh(n_tree_shards: int = 1) -> FamilyMesh:
+    """A (world / n_tree_shards, n_tree_shards) mesh over every rank.
+
+    ``n_tree_shards`` > 1 also splits each family's trees over that many
+    GPUs (for a repertoire of few, very large families).
+    """
+    world = _world()[1]
+    if world % n_tree_shards:
+        raise ValueError(f"{world} devices do not split into "
+                         f"{n_tree_shards} tree shards")
+    return make_mesh(world // n_tree_shards, n_tree_shards)
 
 
 def _world() -> Tuple[int, int]:
@@ -46,9 +98,7 @@ def process_slice(items: Sequence, process_id: Optional[int] = None,
     rank, world = _world()
     p = rank if process_id is None else process_id
     n = world if num_processes is None else num_processes
-    base, rem = divmod(len(items), n)
-    start = p * base + min(p, rem)
-    return list(items[start:start + base + (1 if p < rem else 0)])
+    return list(items[span(len(items), p, n)])
 
 
 def pooled_repertoire_summary_multiprocess(logliks_by_family,
@@ -56,30 +106,20 @@ def pooled_repertoire_summary_multiprocess(logliks_by_family,
     """Repertoire-wide pooled statistics across every process.
 
     Each process passes its own families' log-likelihood and RevBayes
-    log-likelihood arrays (ragged is fine).  Four scalar partials -- trees,
-    sum of LogWeight, families, sum of per-family importance-weight ESS --
-    are summed over the process group with one ``all_reduce`` (on the GPU
-    for an NCCL group), so every process returns the same summary: the
-    total tree count, the pooled mean LogWeight and the mean family ESS.
-    A family with no trees adds nothing (its ESS is undefined).
+    log-likelihood arrays (ragged is fine).  Each holds whole families, so
+    this is ``mesh.pooled_repertoire_summary`` on a (world, 1) mesh over
+    the default group: four scalar partials -- trees, sum of LogWeight,
+    families, sum of per-family importance-weight ESS -- summed with one
+    ``all_reduce`` (on the GPU for an NCCL group).  Every process returns
+    the same summary: the total tree count, the pooled mean LogWeight and
+    the mean family ESS.  A family with no trees adds nothing (its ESS is
+    undefined).
     """
-    partial = np.zeros(4)
-    for ll, rb in zip(logliks_by_family, rb_by_family):
-        lw = np.asarray(ll, float) - np.asarray(rb, float)
-        if lw.size == 0:
-            continue
-        e = np.exp(lw - lw.max())
-        partial += (lw.size, lw.sum(), 1, e.sum() ** 2 / (e * e).sum())
-
-    if _world()[1] > 1:
-        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        t = torch.as_tensor(partial, dtype=torch.float64, device=device)
-        dist.all_reduce(t)
-        partial = t.cpu().numpy()
-
-    n_trees, sum_lw, n_fam, sum_ess = partial
-    return {
-        "n_trees": float(n_trees),
-        "mean_logweight": float(sum_lw / n_trees) if n_trees else 0.0,
-        "mean_family_ess": float(sum_ess / n_fam) if n_fam else 0.0,
-    }
+    rank, world = _world()
+    group = dist.group.WORLD if world > 1 else None
+    nccl = group is not None and dist.get_backend() == "nccl"
+    device = torch.device("cuda", torch.cuda.current_device()) if nccl \
+        else torch.device("cpu")
+    mesh = FamilyMesh(shape={"fam": world, "trees": 1}, rank=rank,
+                      device=device, mesh_group=group)
+    return pooled_repertoire_summary(mesh, logliks_by_family, rb_by_family)

@@ -32,6 +32,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "linearham_tpu_torch.postprocess.bootstrap_asr, "
         "linearham_tpu_torch.parallel.repertoire, "
         "linearham_tpu_torch.parallel.multihost, "
+        "linearham_tpu_torch.parallel.mesh, "
+        "linearham_tpu_torch.parallel.dryrun, "
         "linearham_tpu_torch.workflow\n"
         "print(sorted(m for m in sys.modules "
         "if m == 'jax' or m.startswith(('jax.', 'jaxlib'))))\n")

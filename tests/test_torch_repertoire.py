@@ -145,7 +145,7 @@ def test_repertoire_ragged_tree_counts(tmp_path):
 
 
 def test_one_pruning_call_per_bucket(pairs, monkeypatch):
-    import linearham_tpu_torch.parallel.repertoire as rep
+    import linearham_tpu_torch.parallel.mesh as mesh
 
     calls = []
 
@@ -153,7 +153,7 @@ def test_one_pruning_call_per_bucket(pairs, monkeypatch):
         calls.append(args[4].shape[0])            # trees in the call
         return pruning_cuda.site_log_likelihoods(*args)
 
-    monkeypatch.setattr(rep, "site_log_likelihoods", counting)
+    monkeypatch.setattr(mesh, "site_log_likelihoods", counting)
     run_repertoire([p for _, p in pairs], num_rates=4, device="cpu")
     assert calls == [8, 4, 4]
 

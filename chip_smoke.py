@@ -8,15 +8,22 @@ result line; nothing is caught and passed over):
 
 1. Environment: torch / CUDA / nvcc / triton / yaml versions and the card's
    name and power limit.  A CUDA device is required.
-2. Build the pruning kernel (csrc/pruning.cu) from the checkout with nvcc.
+2. Build the pruning kernel (csrc/pruning.cu) from the checkout with nvcc;
+   print ptxas's registers, stack and spills for each of its 8
+   instantiations, and each type's tile, shared memory and resident warps
+   an SM at the bench unit.
 3. Kernel vs its plain torch version on the card, in f32, at the main
    path's shapes: a 100-sequence family at T=4096, R=4; R=1 with every
    branch length 0 (no NaN, impossible sites hugely negative); an all-N
-   tip row; a 312-sequence family at T=64.  Both are timed at the first
-   shape (CUDA events, median of several launches).  Then the f64
-   instantiation (its 64-site tile) against the f64 plain walk (rtol =
-   atol = 1e-9) at the first shape and the 312-sequence one, timed at the
-   first shape beside the f64 plain walk.
+   tip row; a 312-sequence family at T=64.  The plain walk is timed at the
+   first shape.  Then the kernel is checked again and timed (CUDA events,
+   median) at the bench unit and at tools/bench_312.py's family (T=512),
+   in turns with an earlier version of the kernel where its source was
+   placed at ``BASELINE_SOURCE`` (a comparison run): FLOP of the real
+   entries, bound,
+   FLOP/s and share of the bound of each.  Then the f64 instantiation
+   against the f64 plain walk (rtol = atol = 1e-9) at the first shape and
+   the 312-sequence one, and timed at the bench unit the same way.
 4. The posterior-ensemble pipeline file to file at bench scale (igh,
    100 sequences, 10,240 trees, 4 rates, chunk 4096) through the port's
    run_pipeline, with the kernel's launch count read around it; then the
@@ -55,7 +62,10 @@ result line; nothing is caught and passed over):
    process (exactly 2 launches, one per bucket); the shallowest, the
    deepest and an igk family against ``run_pipeline_arrays`` on the card
    (<= 1e-4 nats); a stacked launch of 64 trees from each of three
-   families against the plain walk (KERNEL_TOL); the deepest family's
+   families against the plain walk (KERNEL_TOL, and in f64 within 1e-9);
+   the whole igh bucket (T = 24,565) against the plain walk and timed in
+   turns with the earlier kernel as in phase 3 (the fourth shape); the
+   deepest family's
    first 256 trees against the plain f64 path (<= 1 nat); then
    ``python -m linearham_tpu_torch.workflow --cluster-indices 0`` twice on
    the bench family with a pre-placed 1,024-tree ensemble (the second run
@@ -76,10 +86,12 @@ result line; nothing is caught and passed over):
    to four of them (else it says it did not run).
 12. The result lines: the nvidia-smi line, the kernels JSON line (launch
    counts of the pipeline, map, serve, repertoire, workflow, mesh and f64
-   paths, the f64 kernel's time), and the {"ok": true, ...} line last.  Before them the script checks that nothing it ran loaded
-   jax: the port's synthetic inputs and the family FASTA come through
-   linearham_tpu_torch.utils.synth, the port's door to the JAX package's
-   numpy-only host modules.
+   paths; the time, bound and share of the bound at each timed shape, in
+   f32 and f64, with the earlier kernel's time where it ran), and the
+   {"ok": true, ...} line last.
+   Before them the script checks that nothing it ran loaded jax or any
+   module of the JAX package (linearham_tpu): the port keeps its own host
+   modules, synthetic inputs included.
 """
 
 import importlib.util
@@ -103,16 +115,16 @@ MESH_LL_BOUND = 1e-6       # nats, a mesh's f64 repertoire vs unsharded
 MESH_F32_RTOL = 2e-6
 MESH_F64_FAMILIES = (0, 3, 12, 23, 24, 25)   # phase 10 indices, run in f64
 F32_LOGLIK_BOUND = 1.0     # nats, f32 pipeline vs f64 plain path
+# An earlier version of csrc/pruning.cu (same C interface), placed here
+# (git-ignored) for a comparison run: phases 3 and 10 then time it in turns
+# with this checkout's kernel.
+BASELINE_SOURCE = os.path.join(REPO, "build", "baseline", "pruning.cu")
 BENCH = dict(n_seqs=100, n_trees=10240, chunk=4096, num_rates=4)
 CACHE_LL_BOUND = 1e-4      # nats, family-cache hit vs miss
 SERVE_TREES = 1024         # the reference's default ensemble size
 # Workflow defaults (linearham_tpu/workflow.py:175-176): 460 of 10,240 rows.
 ASR_BURNIN, ASR_SUBSAMPLE, ASR_TREES = 0.1, 0.05, 460
 PI_FIXTURE = [0.17, 0.19, 0.25, 0.39]
-# Phase 10: (locus, sequences, trees, mutation rate) per family.
-REPERTOIRE = [("igh", (10, 25, 50, 100)[i % 4], 768 + 512 * i // 23,
-               0.02 + 0.0025 * i) for i in range(24)] \
-    + [("igk", 20, 1000, 0.03), ("igk", 60, 900, 0.05)]
 REPERTOIRE_PLAIN_TREES = 64     # per family, stacked launch vs plain walk
 REPERTOIRE_F64_TREES = 256      # deepest family, f32 vs plain f64
 SAMPLED_COLS = {"NaiveSequence", "VGene", "V5pDel", "V3pDel",
@@ -153,42 +165,41 @@ def environment(torch):
 
 def build():
     phase(2, "build the pruning kernel")
+    import re
+
     from linearham_tpu_torch.ops import pruning_cuda
-    from linearham_tpu_torch.utils.cuda_build import build_library
+    from linearham_tpu_torch.utils.cuda_build import (CSRC_DIR,
+                                                      build_library,
+                                                      build_report)
 
     t0 = time.perf_counter()
     lib = build_library("pruning")
-    pruning_cuda.kernel_lib()
+    k = pruning_cuda.kernel_lib()
     print(f"built {os.path.relpath(lib, REPO)} in "
           f"{time.perf_counter() - t0:.2f}s")
-    log = lib.with_suffix(".log").read_text() if lib.with_suffix(
-        ".log").exists() else ""
+    log = build_report(CSRC_DIR / "pruning.cu", "pruning")
+    # -Xptxas -v for every instantiation pruning_kernel<T, R, tile>:
+    # registers, stack, spills.
+    name, seen = None, 0
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
-
-def family_batch(torch, n_seqs, n_trees, num_rates, seed, dtype=None):
-    """(hmm on cuda in ``dtype``, default f32; schedule, eig, pi, rates)
-    for a synthetic family."""
-    from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
-    from linearham_tpu_torch.utils.synth import make_family, make_tree_samples
-
-    fam = make_family(n_seqs=n_seqs, seed=seed)
-    hmm = PhyloHMM.from_parts(
-        fam.locus, fam.flexbounds, fam.relpos, fam.genes, fam.msa,
-        fam.unique_ids, fam.n_sites, device="cuda",
-        dtype=dtype or torch.float32)
-    samples = make_tree_samples(fam, n_trees, seed=seed)
-    sched, eig, rates = prepare_ensemble(hmm, samples, num_rates)
-    return hmm, sched, eig, samples.pi, rates
-
-
-def kernel_args(hmm, sched, eig, pi, rates, idx=None):
-    s, eig_t, pi_t, rates_t = hmm.ensemble_inputs(sched, eig, pi, rates, idx)
-    return [eig_t, pi_t, rates_t, hmm.xmsa_rows, s["sched_src"],
-            s["sched_penc"], s["sched_len"], s["sched_root"], sched.n_slots]
+        m = re.search(r"pruning_kernelI([fd])Li(\d+)ELi(\d+)E", line)
+        if "Compiling entry function" in line and m:
+            name = (f"pruning_kernel<{'float' if m[1] == 'f' else 'double'}"
+                    f", R={m[2]}, {m[3]} sites>")
+        elif name and ("registers" in line or "spill" in line):
+            print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            seen += "registers" in line
+    check(seen == 8, f"ptxas reported {seen} of 8 instantiations")
+    # Shared memory and residency at the bench unit (N = 200, 8 slots,
+    # R = 4), from the library's own reckoning and the occupancy API.
+    for label, elem in (("f32", 4), ("f64", 8)):
+        tile = k.lh_pruning_tile(elem)
+        blocks = k.lh_pruning_blocks_per_sm(8, 4, elem)
+        print(f"  {label}: {tile}-site tile, {tile} + 32 threads a block "
+              f"(a site each, one producer warp), "
+              f"{k.lh_pruning_smem_bytes(200, 8, 4, elem)} B of shared "
+              f"memory; {blocks} blocks = {blocks * (tile + 32) // 32} "
+              f"resident warps an SM")
 
 
 def cuda_ms(torch, fn, reps):
@@ -211,11 +222,12 @@ def kernel_vs_plain(torch):
     phase(3, "kernel vs plain on the card (f32)")
     from linearham_tpu_torch.ops.pruning_cuda import (
         site_log_likelihoods, site_log_likelihoods_plain)
+    from linearham_tpu_torch.tools import pruning_ab
 
-    hmm, sched, eig, pi, rates = family_batch(
-        torch, BENCH["n_seqs"], 4096, BENCH["num_rates"], seed=0)
-    main_args = kernel_args(hmm, sched, eig, pi, rates)
-    sub = kernel_args(hmm, sched, eig, pi, rates, idx=slice(0, 64))
+    hmm, samples = pruning_ab.make_batch(4096, torch.float32,
+                                         n_seqs=BENCH["n_seqs"], seed=0)
+    main_args = pruning_ab.ensemble_args(hmm, samples, BENCH["num_rates"])
+    sub = pruning_ab.ensemble_args(hmm, samples[:64], BENCH["num_rates"])
 
     # R=1 and every branch length 0: identity transitions, so a site where
     # two tips of a cherry disagree has likelihood exactly 0.
@@ -229,12 +241,12 @@ def kernel_vs_plain(torch):
     all_n[3] = rows_n
     all_n[4] = torch.where(is_tip & (sub[4] == 1), rows_n.shape[0] - 1,
                            sub[4]).contiguous()
-    h312, s312, e312, p312, r312 = family_batch(torch, 312, 64, 4, seed=1)
     cases = {
         "100seq_T4096_R4": main_args,
         "R1_zero_branches": zero,
         "all_N_tip": all_n,
-        "312seq_T64_R4": kernel_args(h312, s312, e312, p312, r312),
+        "312seq_T64_R4": pruning_ab.family_args(64, torch.float32,
+                                                n_seqs=312, seed=1),
     }
     worst = 0.0
     for name, args in cases.items():
@@ -258,25 +270,49 @@ def kernel_vs_plain(torch):
         check(ok, f"{name}: kernel disagrees with plain ({err:.3e})")
         worst = max(worst, err)
 
-    from linearham_tpu_torch.ops import pruning_cuda
-
-    ms = cuda_ms(torch, lambda: pruning_cuda._launch(*main_args), 20)
     plain_ms = cuda_ms(torch, lambda: site_log_likelihoods_plain(*main_args),
                        5)
-    print(f"time at 100seq T=4096 R=4 (X={hmm.xmsa.n_cols}, "
-          f"N={sched.n_entries}, n_slots={sched.n_slots}): kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median, CUDA events)")
-    return worst, ms, plain_ms
+    print(f"plain walk at 100seq T=4096 R=4 (X={main_args[3].shape[1]}, "
+          f"N={main_args[4].shape[1]}, n_slots={main_args[8]}): "
+          f"{plain_ms:.3f} ms (median of 5, CUDA events)")
+    del zero, all_n, cases
+    reports = {"bench_T4096_f32": in_turns(torch, "bench_T4096_f32",
+                                           main_args)}
+    del main_args, sub
+    args312 = pruning_ab.family_args(512, torch.float32, tree_seed=20,
+                                     **pruning_ab.FAMILY_312)
+    reports["312seq_T512_f32"] = in_turns(torch, "312seq_T512_f32", args312)
+    return worst, plain_ms, reports
+
+
+def in_turns(torch, name, args, cols=None):
+    """The kernel (and the earlier one, where present) against the plain
+    walk and timed in turns at one shape: FLOP, bound, FLOP/s, share."""
+    from linearham_tpu_torch.tools import pruning_ab
+
+    libs = pruning_ab.load_builds(
+        [f"baseline={BASELINE_SOURCE}"] if os.path.exists(BASELINE_SOURCE)
+        else [])
+    rep = pruning_ab.compare(libs, args, cols)
+    pruning_ab.show(name, rep)
+    if "baseline" not in libs:
+        print(f"  (no earlier kernel at "
+              f"{os.path.relpath(BASELINE_SOURCE, REPO)}: the new one alone)")
+    bad = [b for b, r in rep["builds"].items() if not r["within_tol"]]
+    check(not bad, f"{name}: {bad} disagree with the plain walk")
+    return rep
 
 
 def kernel_vs_plain_f64(torch):
-    """The f64 instantiation against the f64 plain walk, and its time."""
+    """The f64 instantiation against the f64 plain walk, and its time (in
+    turns with the earlier kernel, where present)."""
     from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.tools import pruning_ab
 
     worst, f64 = 0.0, torch.float64
     for name, (n_seqs, T, seed) in (("100seq_T4096_R4", (100, 4096, 0)),
                                     ("312seq_T64_R4", (312, 64, 1))):
-        args = kernel_args(*family_batch(torch, n_seqs, T, 4, seed, f64))
+        args = pruning_ab.family_args(T, f64, n_seqs=n_seqs, seed=seed)
         before = pruning_cuda.launches
         got = pruning_cuda.site_log_likelihoods(*args)
         want = pruning_cuda.site_log_likelihoods_plain(*args)
@@ -292,12 +328,11 @@ def kernel_vs_plain_f64(torch):
         worst = max(worst, err)
         if name.startswith("100seq"):
             main_args = args
-    ms = cuda_ms(torch, lambda: pruning_cuda._launch(*main_args), 20)
     plain_ms = cuda_ms(
         torch, lambda: pruning_cuda.site_log_likelihoods_plain(*main_args), 5)
-    print(f"f64 time at 100seq T=4096 R=4: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms (median, CUDA events)")
-    return worst, ms, plain_ms
+    print(f"f64 plain walk at 100seq T=4096 R=4: {plain_ms:.3f} ms (median "
+          "of 5, CUDA events)")
+    return worst, plain_ms, in_turns(torch, "bench_T4096_f64", main_args)
 
 
 def plain_f64_emissions(torch, yaml_path, gene_dir, samples):
@@ -777,19 +812,18 @@ def repertoire(torch, tmp, files):
     from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.ops.forward import forward
-    from linearham_tpu_torch.ops.gtr import GTREigen
     from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
                                                          run_repertoire)
-    from linearham_tpu_torch.pipeline.run import (prepare_ensemble,
-                                                  run_pipeline_arrays)
+    from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
+    from linearham_tpu_torch.tools import pruning_ab
     from linearham_tpu_torch.utils.synth import (load_tree_samples,
                                                  write_repertoire_inputs)
 
     t0 = time.perf_counter()
     reps = write_repertoire_inputs(os.path.join(tmp, "repertoire"),
-                                   REPERTOIRE, seed=0)
+                                   pruning_ab.REPERTOIRE, seed=0)
     igh, igk = reps["igh"], reps["igk"]
-    n_igh = sum(n for loc, _, n, _ in REPERTOIRE if loc == "igh")
+    n_igh = sum(n for loc, _, n, _ in pruning_ab.REPERTOIRE if loc == "igh")
     print(f"inputs written (untimed) in {time.perf_counter() - t0:.1f}s: "
           f"{len(igh.families)} igh families ({n_igh} trees), "
           f"{len(igk.families)} igk")
@@ -818,7 +852,7 @@ def repertoire(torch, tmp, files):
         "# pruning-kernel launches: ")[1].split()[0])
     check(cli_launches == 1, f"cli repertoire: {cli_launches} launches")
     for fam_files, out, (_, _, n, _) in zip(igh.families, igh.outputs,
-                                            REPERTOIRE):
+                                            pruning_ab.REPERTOIRE):
         header, rows = read_tsv(out)
         check(len(rows) == n, f"{out}: {len(rows)} rows, want {n}")
         for c in ("LHLogLikelihood", "LogWeight"):
@@ -876,41 +910,24 @@ def repertoire(torch, tmp, files):
               f"{CACHE_LL_BOUND})")
         check(dll <= CACHE_LL_BOUND, f"{name}: repertoire != pipeline")
 
-    def stacked_launch_args(group, n=None):
-        """(stacked schedule, kernel arguments) of the first ``n`` trees of
-        each family of ``group``, as one launch."""
-        preps = [prepare_ensemble(t.hmm, t.samples[:n], 4) for t in group]
-        stacked = pruning_cuda.stack_schedules(
-            [p[0] for p in preps],
-            [np.asarray(t.hmm.xmsa.matrix, np.int32) for t in group])
-
-        def put(a):
-            a = np.ascontiguousarray(a)
-            return torch.as_tensor(
-                a, dtype=torch.float32 if a.dtype.kind == "f"
-                else torch.int32, device="cuda")
-
-        s = stacked.sched
-        return stacked, [
-            GTREigen(*(put(np.concatenate(parts))
-                       for parts in zip(*(p[1] for p in preps)))),
-            put(np.concatenate([t.samples.pi[:n] for t in group])),
-            put(np.concatenate([p[2] for p in preps])), put(stacked.codes),
-            put(s.src), put(s.penc), put(s.length), put(s.root), s.n_slots]
+    def stacked(group, n=None, dtype=torch.float32):
+        """Kernel arguments of one stacked launch over the first ``n`` trees
+        of each family of ``group``, and each tree's real sites."""
+        return pruning_ab.stacked_args([t.hmm for t in group],
+                                       [t.samples[:n] for t in group], dtype)
 
     # A stacked launch of three families (unequal N, rows and X) vs plain.
     k = REPERTOIRE_PLAIN_TREES
-    stacked, args = stacked_launch_args(
-        [tasks[f] for f in (shallow, deep, light)], k)
-    s = stacked.sched
+    three = [tasks[f] for f in (shallow, deep, light)]
+    args, cols = stacked(three, k)
     got = pruning_cuda._launch(*args)
     want = pruning_cuda.site_log_likelihoods_plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     ok = torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL)
-    print(f"stacked launch, {k} trees x 3 families (N {s.n_entries}, "
-          f"n_slots {s.n_slots}, rows {stacked.codes.shape[0]}, X "
-          f"{stacked.n_cols} -> {stacked.codes.shape[1]}): "
+    print(f"stacked launch, {k} trees x 3 families (N {args[4].shape[1]}, "
+          f"n_slots {args[8]}, rows {args[3].shape[0]}, X "
+          f"{sorted(set(cols.tolist()))} -> {args[3].shape[1]}): "
           f"max|kernel-plain| {err:.3e}, within {KERNEL_TOL}: {ok}")
     check(ok, f"stacked launch disagrees with plain ({err:.3e})")
     stacked_ms = cuda_ms(torch, lambda: pruning_cuda._launch(*args), 10)
@@ -918,17 +935,26 @@ def repertoire(torch, tmp, files):
         torch, lambda: pruning_cuda.site_log_likelihoods_plain(*args), 3)
     print(f"time of that stacked launch: kernel {stacked_ms:.3f} ms, plain "
           f"{stacked_plain_ms:.3f} ms (median, CUDA events)")
+    # The same launch in f64: the f64 instantiation against its plain walk.
+    args, _ = stacked(three, k, torch.float64)
+    got = pruning_cuda._launch(*args)
+    want = pruning_cuda.site_log_likelihoods_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=F64_KERNEL_TOL, atol=F64_KERNEL_TOL)
+    print(f"the same stacked launch in f64: max|kernel-plain| {err:.3e}, "
+          f"within {F64_KERNEL_TOL}: {ok}")
+    check(ok, f"f64 stacked launch disagrees with plain ({err:.3e})")
 
-    # The igh bucket's whole stacked launch, timed.
-    stacked, args = stacked_launch_args(tasks[:len(igh.families)])
-    s = stacked.sched
-    bucket_ms = cuda_ms(torch, lambda: pruning_cuda._launch(*args), 5)
-    real = sum(int((s.penc[stacked.trees(f)] != (s.n_slots - 1) * 4 + 3)
-                   .sum()) for f in range(len(igh.families)))
-    print(f"igh bucket launch: T={s.n_trees}, N={s.n_entries}, n_slots "
-          f"{s.n_slots}, X={stacked.codes.shape[1]}: {bucket_ms:.3f} ms "
-          f"(median of 5, CUDA events); real entries "
-          f"{real / (s.n_trees * s.n_entries):.3f} of the walked ones")
+    # The igh bucket's whole stacked launch against the plain walk, timed
+    # in turns with the earlier kernel where present.
+    args, cols = stacked(tasks[:len(igh.families)])
+    real = float((args[5] != (args[8] - 1) * 4 + 3).double().mean())
+    print(f"igh bucket launch: T={args[4].shape[0]}, N={args[4].shape[1]}, "
+          f"n_slots {args[8]}, X={args[3].shape[1]}; real entries "
+          f"{real:.3f} of the walked ones")
+    bucket = in_turns(torch, "igh_bucket_T24565_f32", args, cols)
+    del args
 
     # The deepest family's first trees, f32 repertoire vs plain f64.
     n_ref = REPERTOIRE_F64_TREES
@@ -984,7 +1010,8 @@ def repertoire(torch, tmp, files):
     families = [(f.yaml_path, f.gene_dir, f.trees_path)
                 for rep in (igh, igk) for f in rep.families]
     return launches, wf_launches, cli_launches, dict(
-        tasks=tasks, results=results, cache=cache, families=families)
+        tasks=tasks, results=results, cache=cache, families=families,
+        bucket=bucket)
 
 
 def naive_digest(result):
@@ -1000,7 +1027,7 @@ def share_site_ll_matches(torch, mesh, buckets, dtype):
     each bucket is bitwise equal to the same tree's row of one launch over
     the whole bucket (``buckets``: lists of whole-family blocks; 4 rates,
     run_repertoire's default)."""
-    from linearham_tpu.utils.profiling import StageTimer
+    from linearham_tpu_torch.utils.profiling import StageTimer
     from linearham_tpu_torch.parallel.mesh import (shard_family_batch,
                                                    stacked_site_ll)
 
@@ -1199,8 +1226,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     smi = environment(torch)
     build()
-    worst, ms, plain_ms = kernel_vs_plain(torch)
-    worst64, f64_ms, f64_plain_ms = kernel_vs_plain_f64(torch)
+    worst, plain_ms, shapes = kernel_vs_plain(torch)
+    worst64, f64_plain_ms, shapes["bench_T4096_f64"] = kernel_vs_plain_f64(
+        torch)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         launches, files, f64_launches = pipeline(torch, tmp)
@@ -1212,11 +1240,21 @@ def main() -> int:
         rep_launches, wf_launches, cli_launches, rep = repertoire(
             torch, tmp, files)
         mesh_launches = mesh_on_the_card(torch, rep)
+        shapes["igh_bucket_T24565_f32"] = rep["bucket"]
     phase(12, "result")
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
     check(not jax_mods, f"the port loaded jax: {jax_mods[:5]}")
+    ref_mods = sorted(m for m in sys.modules if m == "linearham_tpu"
+                      or m.startswith("linearham_tpu."))
+    check(not ref_mods, f"the port loaded the JAX package: {ref_mods[:5]}")
     print(smi)
+
+    def ms_of(shape, build="new"):
+        times = shapes[shape]["builds"][build]["ms"]
+        return sorted(times)[len(times) // 2]
+
+    bench, bench64 = shapes["bench_T4096_f32"], shapes["bench_T4096_f64"]
     print(json.dumps({"kernels": [{
         "name": "felsenstein_pruning",
         "route": "cuda",
@@ -1231,11 +1269,22 @@ def main() -> int:
                              "mesh": mesh_launches,
                              "f64": f64_launches},
         "max_abs_err": worst,
-        "ms": ms,
+        "ms": ms_of("bench_T4096_f32"),
         "plain_ms": plain_ms,
+        "bound_ms": bench["bound_ms"],
+        "bound_by": bench["bound_by"],
+        "library_ms": None,
+        "flop": bench["flop"],
         "f64_max_abs_err": worst64,
-        "f64_ms": f64_ms,
+        "f64_ms": ms_of("bench_T4096_f64"),
         "f64_plain_ms": f64_plain_ms,
+        "f64_bound_ms": bench64["bound_ms"],
+        "shapes": {name: {"ms": ms_of(name), "bound_ms": r["bound_ms"],
+                          "share_of_bound": r["builds"]["new"]
+                          ["share_of_bound"],
+                          "baseline_ms": ms_of(name, "baseline")
+                          if "baseline" in r["builds"] else None}
+                   for name, r in shapes.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -218,8 +218,8 @@ def _serve(args) -> int:
 def _warmup(args, dtype) -> int:
     """Fill the family cache, build the kernel library (on CUDA), and run
     one chunk with the whole ensemble's shapes."""
-    from linearham_tpu.io.trees_tsv import load_tree_samples
     from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.io.trees_tsv import load_tree_samples
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
 
@@ -266,13 +266,13 @@ def read_manifest(path: str) -> list:
 def _repertoire(args, dtype) -> int:
     """Build every family of the manifest (through the family cache), run
     them with one kernel launch per bucket, and write each family's TSV."""
-    from linearham_tpu.io.trees_tsv import load_tree_samples
-    from linearham_tpu.utils.profiling import StageTimer
     from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.io.trees_tsv import load_tree_samples
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
                                                          run_repertoire,
                                                          write_family_output)
+    from linearham_tpu_torch.utils.profiling import StageTimer
 
     t0 = time.perf_counter()
     rows = read_manifest(args.families)

@@ -12,9 +12,10 @@ from typing import Dict
 
 import numpy as np
 
-from linearham_tpu.compiler.state_space import GermlineRegion, StateSpace
-from linearham_tpu.compiler.transitions import TransitionSet, build_transitions
-from linearham_tpu.io.germline import GermlineGene
+from linearham_tpu_torch.compiler.state_space import GermlineRegion, StateSpace
+from linearham_tpu_torch.compiler.transitions import (TransitionSet,
+                                                      build_transitions)
+from linearham_tpu_torch.io.germline import GermlineGene
 
 
 def _within_region_log(region: GermlineRegion,

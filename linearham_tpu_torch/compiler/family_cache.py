@@ -8,9 +8,11 @@ workflows, repeated sampling).  So the host products of
 ``models.phylo_hmm.load_host_products`` -- numpy arrays and dataclasses,
 never tensors -- are pickled on disk, keyed by a content hash of every input:
 the format version, the cluster index, the dtype name, the partis YAML
-bytes, every gene YAML's bytes, and the sources of the port and of the
-JAX package's host modules it reuses.  A hit unpickles them and places the
-tensors on the device asked for, so the device is never memoised.
+bytes, every gene YAML's bytes, and the port's sources (its host modules
+included).  A hit unpickles them and places the tensors on the device
+asked for, so the device is never memoised.  Format 1 pickled the JAX
+package's classes; the format is in the key, so such an entry is never
+read (unpickling it would import that package) and the family is rebuilt.
 
 ``LINEARHAM_FAMILY_CACHE=off`` disables the cache; any other value is the
 directory.  The default is ``build/family_cache`` at the repository root,
@@ -26,22 +28,14 @@ import pickle
 from pathlib import Path
 from typing import List, Optional
 
-from linearham_tpu.utils.fileio import atomic_write
-from linearham_tpu_torch.models.phylo_hmm import (PhyloHMM,
-                                                  load_host_products)
+from linearham_tpu_torch.models.phylo_hmm import PhyloHMM, load_host_products
+from linearham_tpu_torch.utils.fileio import atomic_write
 from linearham_tpu_torch.utils.runtime import resolve_device, resolve_dtype
 
-_FORMAT_VERSION = 1
+_FORMAT_VERSION = 2
 
 PORT_DIR = Path(__file__).resolve().parents[1]
-JAX_PACKAGE_DIR = PORT_DIR.parent / "linearham_tpu"
 DEFAULT_DIR = PORT_DIR.parent / "build" / "family_cache"
-
-# The JAX package's jax-free modules that host_products runs.
-REUSED_HOST_MODULES = (
-    "io/partis.py", "io/germline.py", "utils/constants.py",
-    "compiler/state_space.py", "compiler/transitions.py", "compiler/xmsa.py",
-)
 
 
 def _cache_dir() -> Optional[str]:
@@ -51,9 +45,8 @@ def _cache_dir() -> Optional[str]:
 
 def source_files() -> List[Path]:
     """Every source whose change must invalidate the cache: the port's own
-    ``.py`` files and the reused host modules of the JAX package."""
-    return sorted(PORT_DIR.rglob("*.py")) + [
-        JAX_PACKAGE_DIR / m for m in REUSED_HOST_MODULES]
+    ``.py`` files."""
+    return sorted(PORT_DIR.rglob("*.py"))
 
 
 def family_key(yaml_path: str, cluster_ind: int, hmm_param_dir: str,

@@ -17,11 +17,9 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from linearham_tpu.compiler.state_space import (
-    GermlineRegion,
-    JunctionRegion,
-    StateSpace,
-)
+from linearham_tpu_torch.compiler.state_space import (GermlineRegion,
+                                                      JunctionRegion,
+                                                      StateSpace)
 
 
 @dataclass

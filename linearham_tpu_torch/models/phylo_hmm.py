@@ -23,19 +23,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from linearham_tpu.compiler.state_space import build_state_space
-from linearham_tpu.compiler.xmsa import Xmsa, build_xmsa, segment_matrix
-from linearham_tpu.io.germline import load_gene_map
-from linearham_tpu.io.newick import TreeBatch, batch_trees, parse_newick
-from linearham_tpu.io.partis import ClusterData, load_cluster
-from linearham_tpu.io.schedule import PruningSchedule, build_schedule
 from linearham_tpu_torch.compiler.compiled import compile_family
+from linearham_tpu_torch.compiler.state_space import build_state_space
+from linearham_tpu_torch.compiler.xmsa import Xmsa, build_xmsa, segment_matrix
+from linearham_tpu_torch.io.germline import load_gene_map
+from linearham_tpu_torch.io.newick import TreeBatch, batch_trees, parse_newick
+from linearham_tpu_torch.io.partis import ClusterData, load_cluster
+from linearham_tpu_torch.io.schedule import PruningSchedule, build_schedule
 from linearham_tpu_torch.models.decode import Annotation, decode_paths_batch
 from linearham_tpu_torch.ops.ffbs import (SampledPath, path_to_numpy,
-                                         sample_path)
+                                          sample_path)
 from linearham_tpu_torch.ops.forward import ForwardCache, forward, widen_cache
 from linearham_tpu_torch.ops.gtr import (GTREigen, gamma_category_rates,
-                                        gtr_eigen)
+                                         gtr_eigen)
 from linearham_tpu_torch.ops.pruning_cuda import (check_schedule,
                                                   site_log_likelihoods)
 from linearham_tpu_torch.ops.viterbi import viterbi

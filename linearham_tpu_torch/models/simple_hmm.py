@@ -16,14 +16,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from linearham_tpu.compiler.emissions import star_emissions
-from linearham_tpu.compiler.state_space import build_state_space
-from linearham_tpu.io.germline import load_gene_map
-from linearham_tpu.io.partis import ClusterData, load_cluster
 from linearham_tpu_torch.compiler.compiled import compile_family
+from linearham_tpu_torch.compiler.emissions import star_emissions
+from linearham_tpu_torch.compiler.state_space import build_state_space
+from linearham_tpu_torch.io.germline import load_gene_map
+from linearham_tpu_torch.io.partis import ClusterData, load_cluster
 from linearham_tpu_torch.models.decode import Annotation, decode_paths_batch
 from linearham_tpu_torch.ops.ffbs import (SampledPath, path_to_numpy,
-                                         sample_path)
+                                          sample_path)
 from linearham_tpu_torch.ops.forward import ForwardCache, forward, widen_cache
 from linearham_tpu_torch.ops.viterbi import viterbi
 from linearham_tpu_torch.utils.runtime import resolve_device

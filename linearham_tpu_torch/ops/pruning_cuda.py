@@ -35,7 +35,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from linearham_tpu.io.schedule import PruningSchedule
+from linearham_tpu_torch.io.schedule import PruningSchedule
 from linearham_tpu_torch.ops.gtr import GTREigen
 from linearham_tpu_torch.utils.runtime import DeviceError
 
@@ -49,19 +49,29 @@ MAX_SHARED_BYTES = 232_448      # 227 KB: a Hopper block's shared-memory cap
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built pruning library (csrc/pruning.cu
+    or an earlier version of it, for a comparison on the card)."""
+    lib.lh_pruning_smem_bytes.restype = ctypes.c_size_t
+    lib.lh_pruning_smem_bytes.argtypes = [ctypes.c_int] * 4
+    for entry in (lib.lh_pruning_launch, lib.lh_pruning_launch_f64):
+        entry.restype = ctypes.c_int
+        entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p])
+    return lib
+
+
 def kernel_lib() -> ctypes.CDLL:
     """Build (first use only) and bind csrc/pruning.cu."""
     global _lib
     if _lib is None:
         from linearham_tpu_torch.utils.cuda_build import load_library
 
-        lib = load_library("pruning")
-        lib.lh_pruning_smem_bytes.restype = ctypes.c_size_t
-        lib.lh_pruning_smem_bytes.argtypes = [ctypes.c_int] * 4
-        for entry in (lib.lh_pruning_launch, lib.lh_pruning_launch_f64):
-            entry.restype = ctypes.c_int
-            entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-                              + [ctypes.c_void_p])
+        lib = bind(load_library("pruning"))
+        lib.lh_pruning_tile.restype = ctypes.c_int
+        lib.lh_pruning_tile.argtypes = [ctypes.c_int]
+        lib.lh_pruning_blocks_per_sm.restype = ctypes.c_int
+        lib.lh_pruning_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         _lib = lib
     return _lib
 
@@ -178,10 +188,12 @@ def site_log_likelihoods(
 
 
 def _launch(eig, pi, rates, row_codes, sched_src, sched_penc, sched_len,
-            sched_root, n_slots) -> torch.Tensor:
+            sched_root, n_slots, lib=None) -> torch.Tensor:
     """Check the inputs and launch the kernel in their float type (all f32
     or all f64; a mix is refused by name).  The kernel fixes each type's
-    site tile (csrc/pruning.cu: 128 in f32, 64 in f64)."""
+    site tile (csrc/pruning.cu: 64 sites in f32, 32 in f64, one a thread,
+    beside a producer warp).  ``lib``: another build of the same interface
+    (a comparison on the card); every launch counts."""
     global launches
     T, N = sched_src.shape
     n_rows, X = row_codes.shape
@@ -210,7 +222,7 @@ def _launch(eig, pi, rates, row_codes, sched_src, sched_penc, sched_len,
         raise ValueError(f"pruning kernel: R={R} rate categories; the kernel "
                          f"is built for R in {SUPPORTED_RATES}")
 
-    lib = kernel_lib()
+    lib = lib or kernel_lib()
     need = lib.lh_pruning_smem_bytes(N, n_slots, R, KERNEL_DTYPES[fdtype])
     if need > MAX_SHARED_BYTES:
         raise ValueError(

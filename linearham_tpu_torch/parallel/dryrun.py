@@ -178,17 +178,22 @@ def dryrun_multigpu(n: int, backend: Optional[str] = None,
     """Run the dry run over ``n`` ranks and print one
     ``dryrun_multigpu ok: mesh=(...)`` line.
 
-    ``backend`` defaults to NCCL with CUDA, else gloo; ``devices`` to
-    ``cuda:0 .. cuda:n-1`` with CUDA, else the CPU.  Ranks that share a
-    GPU need gloo.  Returns every rank's report (mesh, shape, summary,
-    launches, wall).
+    ``devices`` defaults to ``cuda:0 .. cuda:n-1`` and raises without
+    CUDA (name ``["cpu"] * n`` for the CPU); ``backend`` to NCCL on GPUs,
+    else gloo.  Ranks that share a GPU need gloo.  Returns every rank's
+    report (mesh, shape, summary, launches, wall).
     """
     import torch
 
-    cuda = torch.cuda.is_available()
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "devices=['cpu'] * n (--device cpu) to run "
+                               "the dry run on the CPU")
+        devices = [f"cuda:{r}" for r in range(n)]
+    devices = list(devices)
+    cuda = all(torch.device(d).type == "cuda" for d in devices)
     backend = backend or ("nccl" if cuda else "gloo")
-    devices = list(devices or ([f"cuda:{r}" for r in range(n)] if cuda
-                               else ["cpu"] * n))
     reports = launch_ranks(n, f"{MODULE}:_dryrun_rank", None, backend,
                            devices, timeout, threads=None if cuda else 1)
     first = reports[0]
@@ -225,12 +230,12 @@ def _dryrun_rank(devices, payload) -> dict:
     import torch
     import torch.distributed as dist
 
-    from linearham_tpu.utils.profiling import StageTimer
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.parallel.mesh import (FamilyBlock, make_mesh,
                                                    pooled_repertoire_summary,
                                                    sharded_pipeline, span)
     from linearham_tpu_torch.parallel.repertoire import run_repertoire
+    from linearham_tpu_torch.utils.profiling import StageTimer
     from linearham_tpu_torch.utils.runtime import resolve_dtype
 
     world = dist.get_world_size()
@@ -310,13 +315,17 @@ def main(argv=None) -> int:
     p.add_argument("--backend", help="nccl or gloo (default: nccl with "
                                      "CUDA, else gloo)")
     p.add_argument("--device", action="append",
-                   help="a rank's device, once per rank (default: one GPU "
-                        "each, else the CPU)")
+                   help="a rank's device, once per rank, or once for every "
+                        "rank (default: one GPU each; without one, name "
+                        "--device cpu)")
     args = p.parse_args(argv)
     if args.spec is not None:
         _rank_main(args.rank, args.spec)
     else:
-        dryrun_multigpu(args.ranks, args.backend, args.device)
+        devices = args.device
+        if devices is not None and len(devices) == 1:
+            devices = devices * args.ranks
+        dryrun_multigpu(args.ranks, args.backend, devices)
     return 0
 
 

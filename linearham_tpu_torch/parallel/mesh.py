@@ -46,13 +46,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from linearham_tpu.utils.profiling import StageTimer
 from linearham_tpu_torch.models.decode import Annotation
 from linearham_tpu_torch.ops.ffbs import path_to_numpy
 from linearham_tpu_torch.ops.gtr import GTREigen
 from linearham_tpu_torch.ops.pruning_cuda import (site_log_likelihoods,
                                                   stack_schedules)
 from linearham_tpu_torch.pipeline.run import _to_host, prepare_ensemble
+from linearham_tpu_torch.utils.profiling import StageTimer
 from linearham_tpu_torch.utils.runtime import to_device
 
 AXIS_NAMES = ("fam", "trees")
@@ -121,9 +121,13 @@ def local_cuda_index(rank: int) -> int:
 
 
 def _default_device(rank: int) -> torch.device:
-    if torch.cuda.is_available():
-        return torch.device("cuda", local_cuda_index(rank))
-    return torch.device("cpu")
+    """This rank's GPU; raises without one (the CPU is used only when
+    named, as ``utils/runtime.py:resolve_device`` does)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; name the ranks' devices "
+            "(devices=['cpu', ...]) to run the mesh on the CPU")
+    return torch.device("cuda", local_cuda_index(rank))
 
 
 def local_mesh(device) -> FamilyMesh:
@@ -136,7 +140,7 @@ def make_mesh(n_fam: int, n_trees: int,
               devices: Optional[Sequence] = None) -> Optional[FamilyMesh]:
     """A (fam, trees) mesh over ranks 0 .. n_fam*n_trees - 1 of the process
     group; rank r sits at (r // n_trees, r % n_trees) on ``devices[r]``
-    (default: ``cuda:{local rank}`` with CUDA, else the CPU; ranks may name
+    (default: ``cuda:{local rank}``, raising without CUDA; ranks may name
     the same device).
 
     Every rank of the group must call it, in the same order as its other

@@ -68,17 +68,21 @@ def initialize(init_method: Optional[str] = None,
         timeout=timeout or GROUP_TIMEOUT)
 
 
-def global_family_mesh(n_tree_shards: int = 1) -> FamilyMesh:
+def global_family_mesh(n_tree_shards: int = 1,
+                       device=None) -> FamilyMesh:
     """A (world / n_tree_shards, n_tree_shards) mesh over every rank.
 
     ``n_tree_shards`` > 1 also splits each family's trees over that many
-    GPUs (for a repertoire of few, very large families).
+    GPUs (for a repertoire of few, very large families).  ``device``: every
+    rank's device (e.g. "cpu"); by default each rank's GPU, raising
+    without CUDA.
     """
     world = _world()[1]
     if world % n_tree_shards:
         raise ValueError(f"{world} devices do not split into "
                          f"{n_tree_shards} tree shards")
-    return make_mesh(world // n_tree_shards, n_tree_shards)
+    return make_mesh(world // n_tree_shards, n_tree_shards,
+                     devices=None if device is None else [device] * world)
 
 
 def _world() -> Tuple[int, int]:

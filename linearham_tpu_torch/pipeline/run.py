@@ -27,16 +27,16 @@ from typing import List, Optional, TextIO
 import numpy as np
 import torch
 
-from linearham_tpu.io.newick import batch_trees, parse_newick
-from linearham_tpu.io.schedule import build_schedule
-from linearham_tpu.io.trees_tsv import TreeSamples, load_tree_samples
-from linearham_tpu.utils.fileio import atomic_write
-from linearham_tpu.utils.profiling import StageTimer
 from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+from linearham_tpu_torch.io.newick import batch_trees, parse_newick
+from linearham_tpu_torch.io.schedule import build_schedule
+from linearham_tpu_torch.io.trees_tsv import TreeSamples, load_tree_samples
 from linearham_tpu_torch.models.decode import Annotation
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
 from linearham_tpu_torch.ops.ffbs import SampledPath, path_to_numpy
 from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch, gtr_eigen
+from linearham_tpu_torch.utils.fileio import atomic_write
+from linearham_tpu_torch.utils.profiling import StageTimer
 from linearham_tpu_torch.utils.runtime import resolve_dtype
 
 _COMMENT_RE = re.compile(r"\[[^\]]*\]")
@@ -63,7 +63,7 @@ def prepare_ensemble(hmm: PhyloHMM, samples: TreeSamples, num_rates: int,
     The whole ensemble is parsed at once (one native batch call), so every
     chunk shares one schedule width and slot count.
     """
-    from linearham_tpu.io.native import parse_newicks_batch
+    from linearham_tpu_torch.io.native import parse_newicks_batch
 
     tb = parse_newicks_batch(samples.newicks, hmm.xmsa.labels)
     if tb is None:   # no native library: the Python parser, on the host

@@ -27,15 +27,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from linearham_tpu.io.annotated_newick import (parse_annotated_newick,
-                                               reroot_at_tip,
-                                               write_annotated_newick)
-from linearham_tpu.io.newick import collapse_unary, tree_arrays_from_node
-from linearham_tpu.utils.seqs import read_fasta
-from linearham_tpu.utils.stats import effective_sample_size
+from linearham_tpu_torch.io.annotated_newick import (parse_annotated_newick,
+                                                     reroot_at_tip,
+                                                     write_annotated_newick)
+from linearham_tpu_torch.io.newick import collapse_unary, tree_arrays_from_node
 from linearham_tpu_torch.ops.asr import sample_ancestral_states
 from linearham_tpu_torch.ops.gtr import GTREigen, gtr_eigen
 from linearham_tpu_torch.utils.runtime import resolve_device
+from linearham_tpu_torch.utils.seqs import read_fasta
+from linearham_tpu_torch.utils.stats import effective_sample_size
 
 _NON_NUMERIC = {"tree", "NaiveSequence", "VGene", "DGene", "JGene",
                 "VFwkInsertion", "VDInsertion", "DJInsertion",

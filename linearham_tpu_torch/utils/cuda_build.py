@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 from linearham_tpu_torch.utils.runtime import DeviceError
@@ -60,11 +61,21 @@ def build_key(source: Path, nvcc_version: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (if not already built) and return the path
-    of the shared library.  The ptxas report (registers, shared memory,
-    spills) is kept beside it as ``<lib>.log``."""
-    source = CSRC_DIR / f"{name}.cu"
+def _compile(nvcc: str, source: Path, out: Path) -> str:
+    """Run nvcc on ``source`` into ``out``; returns its output (the ptxas
+    report: registers, shared memory, spills)."""
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(out), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        out.unlink(missing_ok=True)
+        raise DeviceError(f"nvcc failed to build {source}:\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build_source(source: Path, name: str) -> Path:
+    """Compile ``source`` (if not already built) into
+    ``build/kernels/<name>-<key>.so`` and return its path.  The ptxas
+    report is kept beside it as ``<lib>.log``."""
     nvcc = find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout
@@ -73,14 +84,26 @@ def build_library(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise DeviceError(f"nvcc failed to build {source}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    lib.with_suffix(".log").write_text(_compile(nvcc, source, tmp))
     os.replace(tmp, lib)   # atomic: concurrent builds each leave a whole file
     return lib
+
+
+def build_report(source: Path, name: str) -> str:
+    """The ptxas report of ``source``'s library: the ``.log`` kept beside
+    it, or, where that is missing (a library left by another build), the
+    output of compiling ``source`` again into a temporary directory."""
+    log = build_source(source, name).with_suffix(".log")
+    if log.exists():
+        return log.read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        return _compile(find_nvcc(), source, Path(tmp) / f"{name}.so")
+
+
+def build_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` (if not already built) and return the path
+    of the shared library."""
+    return build_source(CSRC_DIR / f"{name}.cu", name)
 
 
 def load_library(name: str) -> ctypes.CDLL:

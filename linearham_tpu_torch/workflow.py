@@ -12,11 +12,11 @@ layout, artifact resume and command line, plus ``--device``:
   naive-probs       -> aa_naive_seqs.{fasta,dnamap,png}
   lineage-probs     -> aa_lineage_seqs.* (with --lineage-unique-ids)
 
-The pipeline, bootstrap-ASR, repertoire (``--cluster-indices``) and family
-cache steps run on the port; the steps that touch no jax -- the freshness
-rule (``Workflow``, ``_fresh``), the git stamp, the external partis calls,
-the list parsers and the post-processing modules -- are the JAX package's
-own, imported as they are.  Nothing here loads jax.
+Every step runs on the port: the pipeline, bootstrap-ASR, repertoire
+(``--cluster-indices``) and family cache steps on the device; the
+freshness rule (``Workflow``, ``_fresh``), the git stamp, the external
+partis calls and the post-processing modules on the host, as the JAX
+package's workflow runs them.  Nothing here loads jax or the JAX package.
 
 Usage: python -m linearham_tpu_torch.workflow --outdir out
            --partis-yaml-file ... --hmm-param-dir ... [--device cpu]
@@ -31,13 +31,149 @@ import subprocess
 import sys
 from typing import List, Optional
 
-from linearham_tpu.workflow import (Workflow, _float_list, _fresh, _int_list,
-                                    run_get_linearham_info, run_partis,
-                                    write_git_stamp)
 
 __all__ = ["Workflow", "main", "run_family_workflow",
            "run_get_linearham_info", "run_partis", "run_repertoire_workflow",
            "run_workflow_grid", "write_git_stamp"]
+
+
+def _fresh(outputs: List[str], inputs: List[str]) -> bool:
+    if not all(os.path.exists(o) for o in outputs):
+        return False
+    newest_in = max((os.path.getmtime(i) for i in inputs if
+                     os.path.exists(i)), default=0.0)
+    return all(os.path.getmtime(o) >= newest_in for o in outputs)
+
+
+class Workflow:
+    def __init__(self, outdir: str, verbose: bool = True):
+        self.outdir = outdir
+        self.verbose = verbose
+        os.makedirs(outdir, exist_ok=True)
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.outdir, name)
+
+    def step(self, name: str, outputs: List[str], inputs: List[str],
+             fn, external: bool = False) -> None:
+        """Run ``fn`` unless the outputs are fresh.
+
+        ``external`` steps (artifacts produced by an external engine, e.g.
+        RevBayes) are skipped whenever their outputs merely exist -- a
+        hand-supplied artifact must not be invalidated by config mtimes.
+        """
+        fresh = (all(os.path.exists(o) for o in outputs) if external
+                 else _fresh(outputs, inputs))
+        if fresh:
+            if self.verbose:
+                print(f"[workflow] {name}: up to date")
+            return
+        if self.verbose:
+            print(f"[workflow] {name}: running")
+        fn()
+        missing = [o for o in outputs if not os.path.exists(o)]
+        if missing:
+            raise RuntimeError(f"step {name} did not produce {missing}")
+
+
+def write_git_stamp(outdir: str) -> None:
+    """Reproducibility stamp: commit + describe of the framework checkout.
+
+    The reference records ``git rev-parse HEAD`` and ``git describe
+    --dirty`` into ``<outdir>/git.log`` before running anything
+    (SConstruct:231-235).  When the package is not running from a git
+    checkout, the package version is stamped instead.
+    """
+    pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lines = []
+    # Only trust git when the package directory itself is the checkout;
+    # a site-packages install nested inside some unrelated repository must
+    # not stamp that repository's commit.
+    # .git is a directory in a normal checkout and a FILE in worktrees
+    # and submodules; both are real checkouts.
+    if os.path.exists(os.path.join(pkg_dir, ".git")):
+        for cmd in (["git", "rev-parse", "HEAD"],
+                    ["git", "describe", "--dirty", "--always"]):
+            try:
+                out = subprocess.run(
+                    cmd, cwd=pkg_dir, check=True, capture_output=True,
+                    text=True, timeout=10,
+                ).stdout.strip()
+            except Exception:
+                out = None
+            if out:
+                lines.append(out)
+    if not lines:
+        import linearham_tpu_torch
+
+        lines = ["linearham_tpu_torch " + getattr(
+            linearham_tpu_torch, "__version__", "unversioned")]
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "git.log"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def run_partis(
+    outdir: str,
+    fasta_path: str,
+    partis_binary: str,
+    locus: str = "igh",
+    parameter_dir: Optional[str] = None,
+    all_clonal_seqs: bool = False,
+    extra_args: Optional[List[str]] = None,
+) -> str:
+    """Invoke partis with linearham-info (external engine).
+
+    Mirrors the reference's partis step exactly (SConstruct:296-311):
+    mode ``partition`` normally, ``annotate --all-seqs-simultaneous``
+    when all input sequences are known-clonal; an explicit parameter dir
+    adds ``--refuse-to-cache-parameters``, otherwise partis caches into
+    ``<outdir>/parameter_dir``.  stdout lands in partis_run.stdout.log
+    (the reference's second target).  Returns the output YAML path.
+    """
+    out_yaml = os.path.join(outdir, "partis_run.yaml")
+    mode = (["annotate", "--all-seqs-simultaneous"] if all_clonal_seqs
+            else ["partition"])
+    if parameter_dir is not None:
+        param_args = [parameter_dir.rstrip("/"),
+                      "--refuse-to-cache-parameters"]
+    else:
+        param_args = [os.path.join(outdir, "parameter_dir")]
+    cmd = (
+        [partis_binary] + mode
+        + ["--infname", fasta_path]
+        + ["--parameter-dir"] + param_args
+        + ["--locus", locus,
+           "--extra-annotation-columns", "linearham-info",
+           "--outfname", out_yaml]
+        + (extra_args or [])
+    )
+    with open(os.path.join(outdir, "partis_run.stdout.log"), "w") as log:
+        subprocess.run(cmd, check=True, stdout=log)
+    return out_yaml
+
+
+def run_get_linearham_info(partis_yaml_file: str, partis_binary: str,
+                           out_path: str,
+                           parameter_dir: Optional[str] = None) -> str:
+    """``partis get-linearham-info`` for a pre-existing partis file
+    (reference: SConstruct:318-336): annotates the existing YAML in place
+    into ``--linearham-info-fname``."""
+    cmd = [partis_binary, "get-linearham-info",
+           "--outfname", partis_yaml_file]
+    if parameter_dir is not None:
+        cmd += ["--parameter-dir", parameter_dir.rstrip("/")]
+    cmd += ["--linearham-info-fname", out_path]
+    subprocess.run(cmd, check=True)
+    return out_path
+
+
+def _int_list(text: str) -> List[int]:
+    return [int(x) for x in str(text).split(",")]
+
+
+def _float_list(text: str) -> List[float]:
+    return [float(x) for x in str(text).split(",")]
 
 
 def run_family_workflow(
@@ -69,14 +205,13 @@ def run_family_workflow(
     the CPU conformance path.  ``stop_after="revbayes"`` stops at the
     pipeline boundary (``run_repertoire_workflow`` batches the pipelines of
     several clusters, then re-enters here)."""
-    from linearham_tpu.postprocess.annotations import write_lh_annotations
-    from linearham_tpu.postprocess.lineage_probs import tabulate_lineage_probs
-    from linearham_tpu.postprocess.naive_probs import tabulate_naive_probs
-    from linearham_tpu.postprocess.parse_cluster import parse_cluster
-    from linearham_tpu.postprocess.revbayes_config import generate_rev_file
     from linearham_tpu_torch.pipeline.run import run_pipeline
-    from linearham_tpu_torch.postprocess.bootstrap_asr import \
-        run_bootstrap_asr
+    from linearham_tpu_torch.postprocess.annotations import (write_lh_annotations)
+    from linearham_tpu_torch.postprocess.bootstrap_asr import run_bootstrap_asr
+    from linearham_tpu_torch.postprocess.lineage_probs import (tabulate_lineage_probs)
+    from linearham_tpu_torch.postprocess.naive_probs import (tabulate_naive_probs)
+    from linearham_tpu_torch.postprocess.parse_cluster import parse_cluster
+    from linearham_tpu_torch.postprocess.revbayes_config import (generate_rev_file)
 
     wf = Workflow(outdir)
     write_git_stamp(outdir)
@@ -187,12 +322,12 @@ def run_repertoire_workflow(
         if not _fresh([lh_trees], [rb_trees, cluster_yaml]):
             stale.append((cluster_yaml, rb_trees, lh_trees))
     if stale:
-        from linearham_tpu.io.trees_tsv import load_tree_samples
-        from linearham_tpu_torch.compiler.family_cache import \
-            cached_phylo_hmm
+        from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+        from linearham_tpu_torch.io.trees_tsv import load_tree_samples
         from linearham_tpu_torch.ops import pruning_cuda
-        from linearham_tpu_torch.parallel.repertoire import (
-            FamilyTask, run_repertoire, write_family_output)
+        from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
+                                                             run_repertoire,
+                                                             write_family_output)
         from linearham_tpu_torch.utils.runtime import resolve_dtype
 
         dtype = resolve_dtype(precision, device)

@@ -4,9 +4,9 @@ On the CPU the wrapper's choices are checked against a stub kernel
 library, as tests/test_torch_repertoire.py::test_card_failing_launch_raises
 stubs the real one: all-f64 inputs take ``lh_pruning_launch_f64``, all-f32
 inputs ``lh_pruning_launch``, a mix is refused by the tensor's name, and
-the shared memory follows the kernel's layout (8-byte scalars and a
-64-wide site tile in f64, 4-byte scalars and a 128-wide tile in f32; a
-refusal where that does not fit).
+the shared memory follows the kernel's layout (8-byte scalars, a 32-site
+tile and 4-entry stages in f64; 4-byte scalars, a 64-site tile and 8-entry
+stages in f32; a refusal where that does not fit).
 
 The ``cuda`` tests (skipped without a GPU; jax-free, no conftest fixture)
 hold the f64 kernel against the f64 plain walk at rtol = atol = 1e-9 on a
@@ -34,14 +34,17 @@ ER1 = [1.0] * 6
 PI = [0.17, 0.19, 0.25, 0.39]
 
 
-def _smem(n_entries, n_slots, n_rates, elem, block_x=None):
-    """csrc/pruning.cu:smem_bytes, written out: the scalars (partials, P
-    double buffer, outer, lam, pi, rates, lengths), then int32 src, penc.
-    The site tile defaults to the kernel's for the element size."""
-    block_x = block_x or (64 if elem == 8 else 128)
-    scalars = (n_slots * n_rates * 4 * block_x + 2 * n_rates * 16 + 64 + 8
-               + n_rates + n_entries)
-    return scalars * elem + 8 * n_entries
+def _smem(n_entries, n_slots, n_rates, elem):
+    """csrc/pruning.cu:smem_bytes, written out: the scalars (partials, the
+    ring of 2 stages of P in 6 columns, outer, lam, pi, rates), the int32
+    code ring and schedule ring, then two mbarriers a ring slot.  The tile
+    and stage are the kernel's for the element size; the schedule's length
+    does not enter."""
+    block_x, stage = (32, 4) if elem == 8 else (64, 8)
+    scalars = (n_slots * n_rates * 4 * block_x + 2 * stage * n_rates * 24
+               + 64 + 8 + n_rates)
+    ints = 2 * stage * block_x + 2 * (2 * stage + 1)
+    return (scalars * elem + 4 * ints + 7) // 8 * 8 + 2 * 2 * 8
 
 
 class StubLib:
@@ -93,8 +96,8 @@ def _args(dtype, T=3, N=200, X=10, R=4, n_slots=8, **override):
 
 
 @pytest.mark.parametrize("dtype,R,n_slots,entry", [
-    (torch.float64, 4, 8, "f64"),     # 128 KB 128 wide, 64 KB 64 wide
-    (torch.float64, 8, 8, "f64"),     # 128 wide would need 256 KB
+    (torch.float64, 4, 8, "f64"),     # 32 KB of partials 32 wide
+    (torch.float64, 8, 8, "f64"),     # 64 KB
     (torch.float64, 1, 4, "f64"),
     (torch.float32, 4, 8, "f32"),
     (torch.float32, 8, 8, "f32"),
@@ -114,22 +117,27 @@ def test_launch_picks_the_entry_point_and_tile(stub, dtype, R, n_slots,
 
 
 def test_f64_shared_memory_doubles():
-    """The f64 layout is the f32 one with 8-byte scalars: 128 KB of
-    partials at 8 slots, R=4 and a 128-wide tile (64 KB in f32)."""
-    f32 = _smem(200, 8, 4, 4, 128)
-    f64 = _smem(200, 8, 4, 8, 128)
-    assert f64 - 8 * 200 == 2 * (f32 - 8 * 200)
-    assert 8 * 4 * 4 * 128 * 8 == 131_072
+    """A site's partials double in f64 (1 KB against 512 B at 8 slots,
+    R=4), so f64 takes half the f32 tile: both blocks hold 32 KB of
+    partials, and neither depends on the schedule's length."""
+    for slots, elem, tile in ((1, 4, 64), (1, 8, 32), (8, 4, 64),
+                              (8, 8, 32)):
+        partials = _smem(200, slots, 4, elem) - _smem(200, 0, 4, elem)
+        assert partials == slots * 4 * 4 * elem * tile
+    for elem in (4, 8):
+        assert _smem(200, 8, 4, elem) == _smem(624, 8, 4, elem)
+        assert 32_768 < _smem(200, 8, 4, elem) < 45_000
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_launch_refuses_what_fits_no_tile(stub, dtype):
-    """16 slots and R=8 need 256 KB of partials in either type's tile (f64
-    64 wide, f32 128 wide), over a block's 227 KB: refused before any
+    """32 slots and R=8 need 256 KB of partials in either type's tile (f64
+    32 wide, f32 64 wide), over a block's 227 KB: refused before any
     launch, with nothing run in its place."""
+    assert _smem(200, 16, 8, 8) <= pruning_cuda.MAX_SHARED_BYTES
     before = pruning_cuda.launches
     with pytest.raises(ValueError, match=f"bytes of shared memory.*{dtype}"):
-        pruning_cuda._launch(*_args(dtype, R=8, n_slots=16))
+        pruning_cuda._launch(*_args(dtype, R=8, n_slots=32))
     assert pruning_cuda.launches == before and not stub.calls
 
 
@@ -163,20 +171,10 @@ def cuda_device():
 
 
 def _family_args(device, n_trees, R):
-    from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
-    from linearham_tpu_torch.utils.synth import make_family, make_tree_samples
+    from linearham_tpu_torch.tools import pruning_ab
 
-    fam = make_family(n_seqs=100, seed=0)
-    hmm = PhyloHMM.from_parts(fam.locus, fam.flexbounds, fam.relpos,
-                              fam.genes, fam.msa, fam.unique_ids, fam.n_sites,
-                              device=device, dtype=torch.float64)
-    samples = make_tree_samples(fam, n_trees, seed=0)
-    sched, eig, rates = prepare_ensemble(hmm, samples, R)
-    s, eig_t, pi_t, rates_t = hmm.ensemble_inputs(sched, eig, samples.pi,
-                                                  rates)
-    return [eig_t, pi_t, rates_t, hmm.xmsa_rows, s["sched_src"],
-            s["sched_penc"], s["sched_len"], s["sched_root"], sched.n_slots]
+    return pruning_ab.family_args(n_trees, torch.float64, R, device=device,
+                                  n_seqs=100, seed=0)
 
 
 @pytest.mark.cuda

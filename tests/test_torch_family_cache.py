@@ -86,13 +86,15 @@ def test_family_cache_key_tracks_input_content(family_files, tmp_path):
 
 def test_family_cache_key_tracks_sources(family_files, tmp_path,
                                          monkeypatch):
-    """The key covers the port's own sources and the JAX package's host
-    modules it reuses; editing any one of them changes it."""
+    """The key covers the port's own sources, its copies of the host
+    modules included (none of the JAX package's); editing any one of them
+    changes it."""
     files = family_cache.source_files()
     names = {str(p.relative_to(family_cache.PORT_DIR.parent)) for p in files}
     assert "linearham_tpu_torch/models/phylo_hmm.py" in names
     assert "linearham_tpu_torch/compiler/family_cache.py" in names
-    assert "linearham_tpu/compiler/state_space.py" in names
+    assert "linearham_tpu_torch/compiler/state_space.py" in names
+    assert not any(n.startswith("linearham_tpu/") for n in names)
     assert all(p.is_file() for p in files)
 
     copies = []
@@ -107,7 +109,11 @@ def test_family_cache_key_tracks_sources(family_files, tmp_path,
     port_src = next(c for c in copies if c.name == "phylo_hmm.py"
                     and "linearham_tpu_torch" in str(c))
     port_src.write_text(port_src.read_text() + "\n# edited\n")
-    assert family_key(yaml_path, 0, gene_dir, "float64") != k1
+    k2 = family_key(yaml_path, 0, gene_dir, "float64")
+    assert k2 != k1
+    host_src = next(c for c in copies if c.name == "state_space.py")
+    host_src.write_text(host_src.read_text() + "\n# edited\n")
+    assert family_key(yaml_path, 0, gene_dir, "float64") != k2
 
 
 def test_family_cache_corrupt_entry_falls_back(family_files, tmp_path):

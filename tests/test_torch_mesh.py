@@ -98,11 +98,11 @@ def _mesh_rank(devices, payload):
     out["alone"] = {name: _results(run_repertoire(tasks, seed=0,
                                                   device="cpu"))
                     for name, tasks in sets.items()}
-    meshes = [multihost.global_family_mesh(),
-              multihost.global_family_mesh(n_tree_shards=2)]
+    meshes = [multihost.global_family_mesh(device="cpu"),
+              multihost.global_family_mesh(n_tree_shards=2, device="cpu")]
     out["global"] = [(m.shape, m.axis_names, m.coords) for m in meshes]
     with pytest.raises(ValueError, match="do not split") as err:
-        multihost.global_family_mesh(n_tree_shards=3)
+        multihost.global_family_mesh(n_tree_shards=3, device="cpu")
     out["split_error"] = str(err.value)
     group = dist.group.WORLD
     multihost.initialize(init_method="tcp://localhost:1", world_size=4,
@@ -227,6 +227,21 @@ def test_a_mesh_of_one_without_a_group(tsvs):
                  _results(run_repertoire(tasks, device="cpu")), 0)
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
         make_mesh(2, 1)
+
+
+def test_no_cpu_fallback_without_a_gpu(monkeypatch):
+    """Without a GPU, a mesh or a dry run whose devices are not named
+    raises instead of running on the CPU."""
+    from linearham_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.global_family_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multigpu(2, backend="gloo")
+    assert make_mesh(1, 1, devices=["cpu"]).device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (3, 1), (1, 3), (2, 3)])

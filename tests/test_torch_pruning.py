@@ -244,7 +244,7 @@ def test_cuda_kernel_refuses_oversized_shared_memory(cases, cuda_device):
     from linearham_tpu_torch.ops import pruning_cuda
 
     args = list(_port_args(cases["R8"], torch.float32, cuda_device))
-    args[-1] = 64                  # 64 slots x R=8 x 4 x 128 sites x 4 B
+    args[-1] = 64                  # 64 slots x R=8 x 4 x 64 sites x 4 B
     before = pruning_cuda.launches
     with pytest.raises(ValueError, match="bytes of shared memory"):
         site_log_likelihoods(*args)

@@ -7,7 +7,9 @@ Phases (any failure ends the script with a non-zero exit code and no
 result line; nothing is caught and passed over):
 
 1. Environment: torch / CUDA / nvcc / triton / yaml versions and the card's
-   name and power limit.  A CUDA device is required.
+   name and power limit.  A CUDA device is required, and so is the C++ host
+   library (its path is printed): the Python parsers never stand in for it
+   silently on the card.
 2. Build the pruning kernel (csrc/pruning.cu) from the checkout with nvcc;
    print ptxas's registers, stack and spills for each of its 8
    instantiations, and each type's tile, shared memory and resident warps
@@ -51,6 +53,9 @@ result line; nothing is caught and passed over):
    PhyloHMM -75.8136 / -75.1122515055 through the f64 kernel (exactly one
    launch each), TreeBatch pruning -55.73483; ``map_annotation`` on the
    phylo fixture (card, f32 through the kernel) equal to the CPU's (f64).
+   Then a one-sequence family (the smallest schedule: two tips), 4 trees,
+   R = 4, through the kernel in f64 and f32 against the plain f64 path
+   (F64_LOGLIK_BOUND and F32_LOGLIK_BOUND).
 9. Bootstrap ASR (burn-in 0.1, subsample 0.05: 460 trees) on phase 5's
    10,240-row output, on the card in f64: internal sequences in ACGT, tips
    verbatim, ``.log``/``.ess`` byte-identical to the same call on the CPU.
@@ -84,14 +89,28 @@ result line; nothing is caught and passed over):
    per non-empty bucket share, the wall and the gather's share of it per
    rank; (iii) with two or more GPUs, the dry run over NCCL on up
    to four of them (else it says it did not run).
-12. The result lines: the nvidia-smi line, the kernels JSON line (launch
-   counts of the pipeline, map, serve, repertoire, workflow, mesh and f64
-   paths; the time, bound and share of the bound at each timed shape, in
+12. The result lines (after phase 13): the nvidia-smi line, the kernels
+   JSON line (launch counts of the pipeline, map, serve, repertoire,
+   workflow, mesh, f64, one-sequence and bench paths; the time, bound and
+   share of the bound at each timed shape, in
    f32 and f64, with the earlier kernel's time where it ran), and the
    {"ok": true, ...} line last.
    Before them the script checks that nothing it ran loaded jax or any
    module of the JAX package (linearham_tpu): the port keeps its own host
    modules, synthetic inputs included.
+13. The measurement tool and the mains, as fresh processes:
+   ``python -m linearham_tpu_torch.tools.bench`` in each mode
+   (``BENCH_RUNS``: the pipeline at the bench unit, in igk at 2,048 trees,
+   step, repertoire --mixed --fams 4, repertoire_step, depth312,
+   f32_weights, probe, ensemble --reps 1), each ending with one JSON line
+   that names the card, every row written and every number finite; then
+   the five post-processing mains (``python -m
+   linearham_tpu_torch.postprocess.*``) on phase 9's bootstrap outputs and
+   phase 4's files, while the same functions run in this process: their
+   files byte-equal.  No process loads jax or the JAX package.  The tool's
+   kernel launches are the ``bench`` path's.  (The script runs under
+   PYTHONHASHSEED=0, re-executing itself where it is not set: see
+   ``main``.)
 """
 
 import importlib.util
@@ -102,6 +121,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 5e-4          # rtol = atol, kernel vs plain, both f32
@@ -144,14 +164,13 @@ def phase(n, title):
 def environment(torch):
     phase(1, "environment")
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    from linearham_tpu_torch.io import native
     from linearham_tpu_torch.utils.cuda_build import find_nvcc
+    from linearham_tpu_torch.utils.runtime import card_identity
 
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_identity()
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"torch.version.cuda {torch.version.cuda}")
     print(f"nvcc: {nvcc[-1]}")
@@ -160,6 +179,11 @@ def environment(torch):
               f"{'yes' if importlib.util.find_spec(mod) else 'no'}")
     print(f"device: {torch.cuda.get_device_name(0)}  "
           f"count {torch.cuda.device_count()}  nvidia-smi: {smi}")
+    # The host parsers' C++ library: on the card the Python fallback must
+    # never stand in silently for it.
+    lib = native._load()
+    print(f"native host library: {lib._name if lib else None}")
+    check(lib is not None, "the native host library did not build or load")
     return smi
 
 
@@ -754,6 +778,42 @@ def goldens(torch):
     check(anns["cuda"] == anns["cpu"], "card and CPU MAP annotations differ")
     check(abs(scores["cuda"] - scores["cpu"]) <= 1e-3,
           "card and CPU MAP scores differ")
+    return launches, one_sequence_family(torch)
+
+
+def one_sequence_family(torch):
+    """A one-sequence family (the smallest schedule: two tips), 4 trees,
+    R = 4, through the kernel in f64 and f32, against the plain f64 path
+    on the card.  Returns the kernel's launches."""
+    from linearham_tpu_torch.ops import pruning_cuda
+    from linearham_tpu_torch.pipeline.run import prepare_ensemble
+    from linearham_tpu_torch.tools import pruning_ab
+
+    lls, launches = {}, 0
+    for dtype in (torch.float64, torch.float32):
+        hmm, trees = pruning_ab.make_batch(4, dtype, n_seqs=1, seed=4)
+        sched, eig, rates = prepare_ensemble(hmm, trees, 4)
+        inputs = hmm.ensemble_inputs(sched, eig, trees.pi, rates)
+        before = pruning_cuda.launches
+        lls[dtype] = hmm.step(*inputs, None, sched.n_slots)[0].double().cpu()
+        launches += pruning_cuda.launches - before
+        if dtype == torch.float64:
+            s, eig_t, pi_t, rates_t = inputs
+            plain = hmm.step_from_site_ll(
+                pruning_cuda.site_log_likelihoods_plain(
+                    eig_t, pi_t, rates_t, hmm.xmsa_rows, s["sched_src"],
+                    s["sched_penc"], s["sched_len"], s["sched_root"],
+                    sched.n_slots), pi_t, None)[0].cpu()
+    d64 = float((lls[torch.float64] - plain).abs().max())
+    d32 = float((lls[torch.float32] - plain).abs().max())
+    print(f"one-sequence family (N = {sched.src.shape[1]}, {sched.n_slots} "
+          f"slots), 4 trees: plain f64 {plain.tolist()}; kernel f64 max|d| "
+          f"{d64:.3e} (bound {F64_LOGLIK_BOUND}), f32 {d32:.3e} (bound "
+          f"{F32_LOGLIK_BOUND}); {launches} launches")
+    check(launches == 2, f"one-sequence family: {launches} launches")
+    check(bool(torch.isfinite(plain).all()), "one-sequence: not finite")
+    check(d64 <= F64_LOGLIK_BOUND, "one-sequence family: f64 kernel strays")
+    check(d32 <= F32_LOGLIK_BOUND, "one-sequence family: f32 kernel strays")
     return launches
 
 
@@ -1220,7 +1280,160 @@ def mesh_on_the_card(torch, rep):
     return in_process + rank_launches + dry_launches
 
 
+# Phase 13's runs of linearham_tpu_torch.tools.bench, one fresh process
+# each: every mode; the pipeline at the full bench unit; the igk pipeline
+# and the mixed repertoire cut to keep the phase short (the repertoire's
+# first 4 igh families and both igk ones: still two buckets).
+BENCH_RUNS = (("pipeline",),
+              ("pipeline", "--locus", "igk", "--trees", "2048"),
+              ("step",), ("repertoire", "--mixed", "--fams", "4"),
+              ("repertoire_step",), ("depth312",), ("f32_weights",),
+              ("probe",), ("ensemble", "--reps", "1"))
+# Runs a module as ``python -m`` would, then prints on stderr's last line
+# the modules of jax and of the JAX package that the process loaded.
+RUN_MODULE = (
+    "import json, runpy, sys\n"
+    "module, sys.argv = sys.argv[1], sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+    "except SystemExit as e:\n"
+    "    if e.code:\n"
+    "        raise\n"
+    "print(json.dumps([m for m in sys.modules if m in ('jax', "
+    "'linearham_tpu') or m.startswith(('jax.', 'jaxlib', "
+    "'linearham_tpu.'))]), file=sys.stderr)\n")
+
+
+def start_module(module, args, cwd):
+    """``python -m module args`` started in a fresh process (through
+    RUN_MODULE)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", RUN_MODULE, module, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=cwd,
+        env={**os.environ, "PYTHONPATH": REPO})
+
+
+def finish_module(proc, timeout):
+    """The stdout of a process from ``start_module``; fails when it failed
+    or loaded jax or the JAX package, and kills it when it overran."""
+    name = " ".join(proc.args[3:])
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0, f"{name} failed:\n{err[-3000:]}")
+    foreign = json.loads(err.strip().splitlines()[-1])
+    check(not foreign, f"{name} loaded {foreign[:5]}")
+    return out
+
+
+def finite_numbers(value):
+    """Whether every number in a parsed JSON value is finite (and no value
+    is null)."""
+    import math
+
+    if isinstance(value, dict):
+        return all(finite_numbers(v) for v in value.values())
+    if isinstance(value, list):
+        return all(finite_numbers(v) for v in value)
+    if isinstance(value, float):
+        return math.isfinite(value)
+    return value is not None
+
+
+def tools_and_mains(tmp, files, smi):
+    phase(13, "the measurement tool and the post-processing mains, as "
+              "fresh processes")
+    t_phase = time.perf_counter()
+    launches = 0
+    for args in BENCH_RUNS:
+        t0 = time.perf_counter()
+        out = finish_module(start_module("linearham_tpu_torch.tools.bench",
+                                         args, REPO), 900)
+        wall = time.perf_counter() - t0
+        line = json.loads(out.strip().splitlines()[-1])
+        name = " ".join(args)
+        check(line["device"] == smi, f"bench {name}: device {line['device']}")
+        check(finite_numbers(line), f"bench {name}: a value is not finite")
+        for part in (line, line.get("pipeline", {})):
+            if "n_rows" in part:
+                check(part["n_rows"] == part["n_trees"],
+                      f"bench {name}: {part['n_rows']} rows")
+        launches += line["kernel_launches"]
+        print(f"bench {name}: {wall:.1f}s as a process; {line['metric']} "
+              f"{line['value']} {line['unit']}, {line['kernel_launches']} "
+              f"kernel launches")
+        print(f"  {json.dumps(line)}")
+    bench_s = time.perf_counter() - t_phase
+
+    # The five mains on phase 9's bootstrap outputs and phase 4's files, as
+    # fresh processes while the same functions run in this process
+    # (relative output names: the files name them).
+    from linearham_tpu_torch.postprocess import (annotations, lineage_probs,
+                                                 naive_probs, parse_cluster,
+                                                 revbayes_config)
+
+    t0 = time.perf_counter()
+    asr = os.path.join(tmp, "asr_cuda")
+    fasta = os.path.join(tmp, "cluster_seqs.fasta")
+    cluster = os.path.join(tmp, "cluster.yaml")
+    with open(fasta) as fh:
+        seed_seq = fh.read().split()[2][1:]    # the first member's name
+    rev = ["--mcmc-iter", "1000", "--mcmc-thin", "10", "--tune-iter", "500",
+           "--tune-thin", "100", "--num-rates", "4", "--seed", "0"]
+    mains = [
+        (parse_cluster, [files.yaml_path, "--yaml-output-file", "c.yaml",
+                         "--fasta-output-file", "c.fasta", "--cluster-index",
+                         "0"]),
+        (revbayes_config, ["--fasta-path", fasta, *rev, "--output-path",
+                           "run.rev"]),
+        (naive_probs, [asr + ".trees", "--output-base", "naive"]),
+        (annotations, [cluster, asr + ".log", "--output-base", "ann"]),
+        # Last: it reads naive_probs' naive.fasta.
+        (lineage_probs, [asr + ".trees", "naive.fasta", "--seed-seq",
+                         seed_seq, "--pfilters", "0.1", "0.5",
+                         "--output-base", "lineage"]),
+    ]
+    dirs = {k: os.path.join(tmp, "mains", k) for k in ("process", "cli")}
+    cwd = os.getcwd()
+    for d in dirs.values():
+        os.makedirs(d)
+    procs = [start_module(mod.__name__, argv, dirs["cli"])
+             for mod, argv in mains[:-1]]
+    try:
+        os.chdir(dirs["process"])
+        for mod, argv in mains:
+            check(mod.main(argv) == 0, f"{mod.__name__}.main failed")
+        for proc in procs:
+            finish_module(proc, 300)
+        mod, argv = mains[-1]
+        procs.append(start_module(mod.__name__, argv, dirs["cli"]))
+        finish_module(procs[-1], 300)
+    finally:
+        os.chdir(cwd)
+        for proc in procs:
+            proc.kill()
+    got = {d: {f.name: f.read_bytes()
+               for f in sorted(Path(dirs[d]).iterdir())} for d in dirs}
+    check(len(got["cli"]) >= 10 and got["cli"] == got["process"],
+          "the mains' files differ from the in-process functions' files")
+    print(f"the five mains as python -m: {len(got['cli'])} files, "
+          f"byte-equal to the in-process functions'; "
+          f"{time.perf_counter() - t0:.1f}s")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f}s (the tool's runs "
+          f"{bench_s:.1f}s)")
+    return launches
+
+
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # The lineage tables order tied counts by set iteration, which
+        # follows str hashing: phase 13 holds the mains' files written by
+        # fresh processes byte-equal to this process's, so every process
+        # of the run takes one hash seed.
+        os.execve(sys.executable, [sys.executable, os.path.abspath(__file__),
+                                   *sys.argv[1:]],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     import torch
 
     sys.path.insert(0, REPO)
@@ -1235,12 +1448,14 @@ def main() -> int:
         hit_tsv, _ = family_cache(torch, tmp, files)
         serve_launches = warmup_and_serve(torch, tmp, files)
         map_launches, _ = viterbi_through_kernel(torch, tmp, files)
-        f64_launches += goldens(torch)
+        golden_launches, one_seq_launches = goldens(torch)
+        f64_launches += golden_launches
         bootstrap_asr(torch, tmp, files, hit_tsv)
         rep_launches, wf_launches, cli_launches, rep = repertoire(
             torch, tmp, files)
         mesh_launches = mesh_on_the_card(torch, rep)
         shapes["igh_bucket_T24565_f32"] = rep["bucket"]
+        bench_launches = tools_and_mains(tmp, files, smi)
     phase(12, "result")
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -1267,7 +1482,9 @@ def main() -> int:
                              "repertoire_cli": cli_launches,
                              "workflow": wf_launches,
                              "mesh": mesh_launches,
-                             "f64": f64_launches},
+                             "f64": f64_launches,
+                             "one_sequence": one_seq_launches,
+                             "bench": bench_launches},
         "max_abs_err": worst,
         "ms": ms_of("bench_T4096_f32"),
         "plain_ms": plain_ms,

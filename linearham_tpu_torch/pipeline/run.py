@@ -234,6 +234,15 @@ def write_tsv_rows(samples: TreeSamples, rates, lh_loglik, logweight,
         outfile.write("\t".join(str(v) for v in row) + "\n")
 
 
+def write_output_tsv(result: PipelineResult, heavy: bool,
+                     outfile: TextIO) -> None:
+    """Write the reference-format pipeline TSV (header + all rows)."""
+    write_tsv_header(result.rates.shape[1], heavy, outfile)
+    write_tsv_rows(result.samples, result.rates, result.lh_loglik,
+                   result.logweight, result.annotations, 0,
+                   result.samples.n_samples, heavy, outfile)
+
+
 def run_pipeline(
     yaml_path: str,
     cluster_ind: int,

@@ -230,3 +230,39 @@ def write_lh_annotations(
     write(output_base + "_best.yaml", [out[0]])
     write(output_base + "_all.yaml", out)
     return out
+
+
+def main(argv=None) -> int:
+    """CLI mirroring the reference script
+    (scripts/write_lh_annotations.py:22-35).
+
+    Like the reference (:39), the annotated trees file defaults to the log
+    path with ``.log`` replaced by ``.trees``.
+    """
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Combine the partis output YAML and linearham_run.log "
+                    "into partis-style linearham annotations.")
+    p.add_argument("partis_yaml_file",
+                   help="Path to partis output YAML file.")
+    p.add_argument("linearham_log_file",
+                   help="Path to linearham_run.log TSV file.")
+    p.add_argument("--output-base", required=True,
+                   help="The base output path for linearham annotations.")
+    p.add_argument("--collapse-annotations-by",
+                   type=lambda x: x.split(","), default=None,
+                   help="comma-separated list of annotation keys defining "
+                        "a unique annotation")
+    p.add_argument("--trees-file", default=None,
+                   help="annotated trees file (default: the log path with "
+                        ".log -> .trees)")
+    a = p.parse_args(argv)
+    trees = a.trees_file or a.linearham_log_file.replace(".log", ".trees")
+    write_lh_annotations(a.partis_yaml_file, a.linearham_log_file, trees,
+                         a.output_base, collapse_by=a.collapse_annotations_by)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -144,3 +144,31 @@ def _write_dot(path, edge_counts, node_counts, names_of, seed_seq,
     lines.append("}")
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+def main(argv=None) -> int:
+    """CLI mirroring the reference script
+    (scripts/tabulate_lineage_probs.py:66-83)."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Tabulate the ancestral lineage posterior "
+                    "probabilities.")
+    p.add_argument("trees_path", help="Path to linearham trees file.")
+    p.add_argument("naive_seqs_path",
+                   help="Path to naive sequence FASTA file.")
+    p.add_argument("--seed-seq", required=True,
+                   help="The name of the seed sequence.")
+    p.add_argument("--pfilters", nargs="+", required=True, type=float,
+                   help="Ancestral-sequence posterior probability "
+                        "thresholds.")
+    p.add_argument("--output-base", required=True,
+                   help="The output basename.")
+    a = p.parse_args(argv)
+    tabulate_lineage_probs(a.trees_path, a.naive_seqs_path, a.seed_seq,
+                           a.pfilters, a.output_base)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

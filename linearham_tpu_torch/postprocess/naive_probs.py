@@ -120,3 +120,22 @@ def tabulate_naive_probs(trees_path: str, output_base: str,
         except Exception as exc:  # plotting must never sink the pipeline
             print(f"warning: logo plot failed: {exc}")
     return named
+
+
+def main(argv=None) -> int:
+    """CLI mirroring the reference script
+    (scripts/tabulate_naive_probs.py:17-25)."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Tabulate the naive sequence posterior probabilities.")
+    p.add_argument("trees_path", help="Path to linearham trees file.")
+    p.add_argument("--output-base", required=True,
+                   help="The output basename.")
+    a = p.parse_args(argv)
+    tabulate_naive_probs(a.trees_path, a.output_base)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -93,3 +93,42 @@ def parse_cluster(
             fh, sort_keys=False, width=10 ** 6)
     write_fasta(seqs, fasta_output_path)
     return event
+
+
+def main(argv=None) -> int:
+    """CLI mirroring the reference script (scripts/parse_cluster.py:119-158).
+
+    The reference's --glfo-dir/--locus flags exist only for old-style csv
+    partis outputs, which predate the linearham-info contract; YAML partis
+    output is the supported input here.
+    """
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Parse the sequences in one clonal family.")
+    p.add_argument("partis_yaml_file",
+                   help="Path to partis output YAML file.")
+    p.add_argument("--fasta-output-file", required=True,
+                   help="output fasta file name")
+    p.add_argument("--yaml-output-file", required=True,
+                   help="output yaml file name")
+    p.add_argument("--partition-index", type=int,
+                   help="partition index (default: best partition)")
+    p.add_argument("--cluster-index", type=int,
+                   help="cluster index within the partition")
+    p.add_argument("--seed-unique-id",
+                   help="select the cluster containing this seed sequence")
+    p.add_argument("--indel-reversed-seqs", action="store_true",
+                   help="use shm-indel-reversed sequences (same length as "
+                        "and aligned to the naive sequence)")
+    a = p.parse_args(argv)
+    parse_cluster(
+        a.partis_yaml_file, a.yaml_output_file, a.fasta_output_file,
+        partition_index=a.partition_index, cluster_index=a.cluster_index,
+        seed_unique_id=a.seed_unique_id,
+        indel_reversed_seqs=a.indel_reversed_seqs)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -132,3 +132,43 @@ def generate_rev_file(
     with open(output_path, "w") as fh:
         fh.write(text)
     return text
+
+
+def main(argv=None) -> int:
+    """CLI mirroring the reference script
+    (scripts/generate_revbayes_rev_file.py:10-39).
+
+    The Rev model spec is embedded (it is the configuration contract for
+    the external RevBayes engine); a jinja2-style template file may still
+    be supplied positionally and its ``{{ var }}`` fields are substituted
+    with the same variables the reference passes.
+    """
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Create a RevBayes Rev file from a template.")
+    p.add_argument("template_path", nargs="?", default=None,
+                   help="Path to a Rev template (optional; the built-in "
+                        "model spec is used when omitted).")
+    p.add_argument("--fasta-path", required=True,
+                   help="Path to clonal family FASTA file.")
+    p.add_argument("--mcmc-iter", type=int, required=True)
+    p.add_argument("--mcmc-thin", type=int, required=True)
+    p.add_argument("--tune-iter", type=int, required=True)
+    p.add_argument("--tune-thin", type=int, required=True)
+    p.add_argument("--num-rates", type=int, required=True,
+                   help="The number of gamma rate categories.")
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--output-path", required=True,
+                   help="The Rev file path.")
+    a = p.parse_args(argv)
+
+    generate_rev_file(
+        a.fasta_path, a.output_path, a.mcmc_iter, a.mcmc_thin,
+        a.tune_iter, a.tune_thin, a.num_rates, a.seed,
+        template_path=a.template_path)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

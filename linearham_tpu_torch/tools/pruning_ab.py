@@ -312,11 +312,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("pruning_ab: needs a CUDA device", file=sys.stderr)
         return 2
-    import subprocess
+    from linearham_tpu_torch.utils.runtime import card_identity
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = card_identity()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     libs = load_builds(a.source, verbose=True)
     reports = {}

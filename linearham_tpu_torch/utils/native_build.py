@@ -6,8 +6,9 @@ sources in the checkout only, into ``build/native/`` at the repository
 root, keyed by a hash of the sources, the flags and the compiler's version
 (an edited source is rebuilt, an unchanged one reused).  The build goes to
 a temporary name and is renamed into place, so concurrent processes each
-see a whole file.  Without a compiler, ``build_native`` returns None and
-``io/native.py``'s callers take their Python paths.
+see a whole file.  Without a compiler, or where ``build/native/`` cannot
+be created, ``build_native`` returns None and ``io/native.py``'s callers
+take their Python paths.
 """
 
 from __future__ import annotations
@@ -41,7 +42,10 @@ def build_native() -> Optional[Path]:
     lib = BUILD_DIR / f"liblinearham_native-{h.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:   # a read-only install, or a file where a directory should be
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return None
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     try:
         subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, sources)],

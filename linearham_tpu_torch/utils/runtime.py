@@ -83,6 +83,17 @@ def resolve_dtype(precision: Union[str, torch.dtype, None] = None,
                      "(expected f32, f64, or auto)")
 
 
+def card_identity() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (one line a card)."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def to_device(a, device: torch.device, dtype: torch.dtype,
               non_blocking: bool = False) -> torch.Tensor:
     """numpy array -> tensor on ``device``.  Floating arrays take ``dtype``;

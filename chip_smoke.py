@@ -548,11 +548,12 @@ def family_cache(torch, tmp, files):
           f"{differ} of {len(miss)}")
     check(dll <= CACHE_LL_BOUND, "hit log-likelihoods differ from miss")
 
-    # One chunk (max_chunks=1, whole-ensemble shapes) under --trace-dir:
-    # the torch.profiler trace must hold the kernel's launch.
+    # One chunk (max_chunks=1, whole-ensemble shapes) under the exporter of
+    # --trace-dir: the torch.profiler trace must hold the kernel's launch.
     from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
+    from linearham_tpu_torch.utils import profiling
     from linearham_tpu_torch.utils.synth import load_tree_samples
 
     trace_dir = os.path.join(tmp, "trace")
@@ -560,9 +561,10 @@ def family_cache(torch, tmp, files):
                            device="cuda", dtype=torch.float32)
     samples = load_tree_samples(files.trees_path)
     before = pruning_cuda.launches
-    result = run_pipeline_arrays(hmm, samples, BENCH["num_rates"],
-                                 chunk_size=BENCH["chunk"], max_chunks=1,
-                                 trace_dir=trace_dir)
+    with profiling.recording() as timer, profiling.trace(
+            trace_dir, "cuda", timer, "pipeline"):
+        result = run_pipeline_arrays(hmm, samples, BENCH["num_rates"],
+                                     chunk_size=BENCH["chunk"], max_chunks=1)
     check(len(result.annotations) == BENCH["chunk"]
           and pruning_cuda.launches == before + 1,
           "max_chunks=1 did not run exactly one chunk")
@@ -1087,7 +1089,6 @@ def share_site_ll_matches(torch, mesh, buckets, dtype):
     each bucket is bitwise equal to the same tree's row of one launch over
     the whole bucket (``buckets``: lists of whole-family blocks; 4 rates,
     run_repertoire's default)."""
-    from linearham_tpu_torch.utils.profiling import StageTimer
     from linearham_tpu_torch.parallel.mesh import (shard_family_batch,
                                                    stacked_site_ll)
 
@@ -1095,10 +1096,9 @@ def share_site_ll_matches(torch, mesh, buckets, dtype):
         share = shard_family_batch(mesh, blocks)
         if not share:
             continue
-        whole, st_whole, _ = stacked_site_ll(blocks, 4, mesh.device, dtype,
-                                             StageTimer())
-        part, st_part, _ = stacked_site_ll(share, 4, mesh.device, dtype,
-                                           StageTimer())
+        whole, st_whole, *_ = stacked_site_ll(blocks, 4, mesh.device,
+                                              dtype)
+        part, st_part, *_ = stacked_site_ll(share, 4, mesh.device, dtype)
         at = {b.index: f for f, b in enumerate(blocks)}
         for f, b in enumerate(share):
             start = st_whole.trees(at[b.index]).start
@@ -1159,7 +1159,8 @@ def mesh_repertoire_rank(devices, payload):
             wall, launches = time.perf_counter() - t0, pruning_cuda.launches
             out.append({
                 "dtype": str(dtype).removeprefix("torch."), "shape": shape,
-                "wall": wall, "gather_s": mesh.gather_s, "timings": timings,
+                "wall": wall, "gather_s": timings.get("gather", 0.0),
+                "timings": timings,
                 "launches": launches,
                 "expected_launches": sum(1 for share in shares if share),
                 "trees": sum(b.n_trees for share in shares for b in share),
@@ -1203,8 +1204,10 @@ def mesh_on_the_card(torch, rep):
         setup = time.perf_counter() - t0
         torch.cuda.synchronize()
         pruning_cuda.launches = 0
+        timings = {}
         t0 = time.perf_counter()
-        got = run_repertoire(tasks, seed=0, mesh=mesh, dtype=torch.float32)
+        got = run_repertoire(tasks, seed=0, mesh=mesh, dtype=torch.float32,
+                             timings=timings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         in_process = pruning_cuda.launches
@@ -1214,7 +1217,8 @@ def mesh_on_the_card(torch, rep):
     same = [naive_digest(r) for r in got] == want_naive
     print(f"(i) NCCL group of one, mesh (1, 1) on {mesh.device}: group and "
           f"communicator set-up {setup:.3f}s; wall {wall:.3f}s, "
-          f"{in_process} launches, gather {mesh.gather_s:.4f}s; "
+          f"{in_process} launches, gather "
+          f"{timings.get('gather', 0.0):.4f}s; "
           f"vs no mesh: max|dLHLogLikelihood| {dll:.3e} nats, samples "
           f"identical: {same}")
     check(in_process == 2, f"(i): {in_process} launches, want 2")

@@ -18,6 +18,7 @@ contract (src/linearham.cpp:268-455):
       stdin line, one JSON answer per stdout line)
   python -m linearham_tpu_torch.cli repertoire --families manifest.tsv
       --hmm-param-dir ... [--num-rates K] [--seed S] [--profile]
+      [--trace-dir DIR]
       (many families, one pruning-kernel launch per bucket; the manifest
       has one tab-separated line per family:
       yaml_path, cluster_ind, trees_tsv, output_tsv)
@@ -66,6 +67,13 @@ def _base_args(p: argparse.ArgumentParser) -> None:
     _device_args(p)
 
 
+def _trace_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace-dir",
+                   help="write a torch.profiler trace of the whole call, "
+                        "with the program's spans, (Chrome trace JSON) into "
+                        "this directory")
+
+
 def _phylo_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--newick-path", required=True, help="Newick tree file")
     p.add_argument("--er", type=float, action="append", required=True,
@@ -103,9 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print per-stage wall-clock timings to stderr")
     p.add_argument("--chunk-size", type=int, default=256,
                    help="trees per device step (default 256)")
-    p.add_argument("--trace-dir",
-                   help="write a torch.profiler trace of the chunk loop "
-                        "(Chrome trace JSON) into this directory")
+    _trace_arg(p)
 
     p = sub.add_parser(
         "serve",
@@ -131,6 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="number of gamma rate categories")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage wall-clock timings to stderr")
+    _trace_arg(p)
     _device_args(p)
 
     p = sub.add_parser(
@@ -168,6 +175,7 @@ def _serve(args) -> int:
     """
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.pipeline.run import run_pipeline
+    from linearham_tpu_torch.utils import profiling
     from linearham_tpu_torch.utils.runtime import (is_device_error,
                                                    resolve_device)
 
@@ -188,14 +196,16 @@ def _serve(args) -> int:
             if missing:
                 raise ValueError("request is missing key(s): "
                                  + ", ".join(repr(k) for k in missing))
-            result = run_pipeline(
-                req["yaml_path"], int(req["cluster_ind"]),
-                req["hmm_param_dir"], req["input_path"], req["output_path"],
-                num_rates=int(req.get("num_rates", 4)),
-                seed=int(req.get("seed", 0)),
-                chunk_size=int(req.get("chunk_size", 256)),
-                precision=req.get("precision", args.precision),
-                device=device)
+            with profiling.recording() as timer:
+                result = run_pipeline(
+                    req["yaml_path"], int(req["cluster_ind"]),
+                    req["hmm_param_dir"], req["input_path"],
+                    req["output_path"],
+                    num_rates=int(req.get("num_rates", 4)),
+                    seed=int(req.get("seed", 0)),
+                    chunk_size=int(req.get("chunk_size", 256)),
+                    precision=req.get("precision", args.precision),
+                    device=device)
         except Exception as exc:  # noqa: BLE001 -- the server's boundary
             if is_device_error(exc):
                 traceback.print_exc()
@@ -211,6 +221,9 @@ def _serve(args) -> int:
             "n_trees": result.samples.n_samples,
             "wall_s": round(time.perf_counter() - t0, 3),
             "kernel_launches": pruning_cuda.launches - launches,
+            "stages": {k: round(v, 6) for k, v in
+                       timer.self_times().items()},
+            "counters": timer.counters,
         }), flush=True)
     return 0
 
@@ -272,33 +285,32 @@ def _repertoire(args, dtype) -> int:
     from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
                                                          run_repertoire,
                                                          write_family_output)
-    from linearham_tpu_torch.utils.profiling import StageTimer
+    from linearham_tpu_torch.pipeline.run import print_profile
+    from linearham_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
     rows = read_manifest(args.families)
-    timer = StageTimer()
-    tasks = []
-    for yaml_path, ci, trees, _ in rows:
-        with timer.stage("load_trees_tsv"):
-            samples = load_tree_samples(trees)
-        with timer.stage("build_hmm"):
-            hmm = cached_phylo_hmm(yaml_path, ci, args.hmm_param_dir,
-                                   seed=args.seed, device=args.device,
-                                   dtype=dtype)
-        tasks.append(FamilyTask(hmm=hmm, samples=samples))
-    timings = timer.as_dict()
-    results = run_repertoire(tasks, num_rates=args.num_rates, seed=args.seed,
-                             device=args.device, dtype=dtype,
-                             timings=timings)
-    t1 = time.perf_counter()
-    for (_, _, _, out_path), task, res in zip(rows, tasks, results):
-        write_family_output(task, res, args.num_rates, out_path)
-    timings["write_tsv"] = time.perf_counter() - t1
+    with profiling.recording() as timer, profiling.trace(
+            args.trace_dir, args.device, timer, "repertoire"):
+        tasks = []
+        for yaml_path, ci, trees, _ in rows:
+            with timer.stage("load_trees_tsv"):
+                samples = load_tree_samples(trees)
+            with timer.stage("build_hmm"):
+                hmm = cached_phylo_hmm(yaml_path, ci, args.hmm_param_dir,
+                                       seed=args.seed, device=args.device,
+                                       dtype=dtype)
+            tasks.append(FamilyTask(hmm=hmm, samples=samples))
+        results = run_repertoire(tasks, num_rates=args.num_rates,
+                                 seed=args.seed, device=args.device,
+                                 dtype=dtype)
+        with timer.stage("write_tsv"):
+            for (_, _, _, out_path), task, res in zip(rows, tasks, results):
+                write_family_output(task, res, args.num_rates, out_path)
     wall = time.perf_counter() - t0
     total = sum(t.samples.n_samples for t in tasks)
     if args.profile:
-        for k, v in timings.items():
-            print(f"#   {k}: {v * 1e3:.1f}ms", file=sys.stderr)
+        print_profile(timer.as_dict(), timer.counters)
         print(f"# pruning-kernel launches: {pruning_cuda.launches}",
               file=sys.stderr)
     print(f"repertoire ok: {len(tasks)} families, {total} trees in "

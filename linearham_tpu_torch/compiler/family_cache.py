@@ -29,6 +29,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM, load_host_products
+from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.fileio import atomic_write
 from linearham_tpu_torch.utils.runtime import resolve_device, resolve_dtype
 
@@ -76,33 +77,43 @@ def cached_phylo_hmm(yaml_path: str, cluster_ind: int, hmm_param_dir: str,
     Hit: unpickle the host products and place them on ``device``.  Miss:
     build, then persist the host products (atomic rename; concurrent
     writers race benignly).  An unreadable entry is deleted and rebuilt.
+
+    Spans (``utils.profiling``): family_key, cache_read, then on a miss
+    ``load_host_products``'s and cache_write; place.  Counters: cache_hits,
+    cache_misses (with a cache directory only).
     """
     device = resolve_device(device)
     dtype = resolve_dtype(dtype, device)
     d = cache_dir or _cache_dir()
-    path = None if d is None else os.path.join(d, family_key(
-        yaml_path, cluster_ind, hmm_param_dir,
-        str(dtype).removeprefix("torch.")) + ".pkl")
-    if path is not None and os.path.exists(path):
-        host = None
-        try:
-            with open(path, "rb") as fh:
-                host = pickle.load(fh)
-        except Exception:
-            # Only an unreadable pickle means a corrupt entry; a failure
-            # past this point (placing on the device) keeps the file.
-            try:
-                os.unlink(path)
-            except OSError:
-                pass
-        if host is not None:
-            return PhyloHMM.from_host_products(host, device, dtype, seed)
+    path = host = None
+    if d is not None:
+        with profiling.span("family_key"):
+            path = os.path.join(d, family_key(
+                yaml_path, cluster_ind, hmm_param_dir,
+                str(dtype).removeprefix("torch.")) + ".pkl")
+        with profiling.span("cache_read"):
+            if os.path.exists(path):
+                try:
+                    with open(path, "rb") as fh:
+                        host = pickle.load(fh)
+                except Exception:
+                    # Only an unreadable pickle means a corrupt entry; a
+                    # failure past this point (placing on the device) keeps
+                    # the file.
+                    try:
+                        os.unlink(path)
+                    except OSError:
+                        pass
+        profiling.count("cache_misses" if host is None else "cache_hits")
 
-    host = load_host_products(yaml_path, cluster_ind, hmm_param_dir)
-    if path is not None:
-        try:
-            with atomic_write(path, "wb") as fh:
-                pickle.dump(host, fh)
-        except OSError:
-            pass  # cache population is best-effort
-    return PhyloHMM.from_host_products(host, device, dtype, seed)
+    if host is None:
+        host = load_host_products(yaml_path, cluster_ind, hmm_param_dir)
+        if path is not None:
+            with profiling.span("cache_write"):
+                try:
+                    with atomic_write(path, "wb") as fh:
+                        pickle.dump(host, fh)
+                except OSError:
+                    pass  # cache population is best-effort
+    with profiling.span("place"):
+        return PhyloHMM.from_host_products(host, device, dtype, seed)

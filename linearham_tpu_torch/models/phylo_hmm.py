@@ -39,6 +39,7 @@ from linearham_tpu_torch.ops.gtr import (GTREigen, gamma_category_rates,
 from linearham_tpu_torch.ops.pruning_cuda import (check_schedule,
                                                   site_log_likelihoods)
 from linearham_tpu_torch.ops.viterbi import viterbi
+from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.runtime import (full_f32_matmuls,
                                                resolve_device, resolve_dtype,
                                                to_device)
@@ -217,11 +218,17 @@ def host_products(cluster: ClusterData, genes, msa: np.ndarray) -> dict:
 def load_host_products(yaml_path: str, cluster_ind: int,
                        hmm_param_dir: str) -> dict:
     """``host_products`` of one family read from its partis YAML and its
-    germline parameter directory."""
-    cluster = load_cluster(yaml_path, cluster_ind)
-    genes = load_gene_map(hmm_param_dir)
-    msa = cluster.msa_codes(next(iter(genes.values())).alphabet + "N")
-    return host_products(cluster, genes, msa)
+    germline parameter directory.  Spans (``utils.profiling``):
+    load_cluster, load_gene_map, compile (state space, transitions, xMSA,
+    emission maps).  Counter: gene_map_parses."""
+    with profiling.span("load_cluster"):
+        cluster = load_cluster(yaml_path, cluster_ind)
+    with profiling.span("load_gene_map"):
+        genes = load_gene_map(hmm_param_dir)
+    profiling.count("gene_map_parses")
+    with profiling.span("compile"):
+        msa = cluster.msa_codes(next(iter(genes.values())).alphabet + "N")
+        return host_products(cluster, genes, msa)
 
 
 @dataclass

@@ -37,9 +37,11 @@ import torch
 
 from linearham_tpu_torch.io.schedule import PruningSchedule
 from linearham_tpu_torch.ops.gtr import GTREigen
+from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.runtime import DeviceError
 
-# Kernel launches made by site_log_likelihoods in this process (reset freely).
+# Kernel launches made by site_log_likelihoods in this process (reset freely);
+# each also counts as pruning_launches in the active recorder.
 launches = 0
 
 SUPPORTED_RATES = (1, 2, 4, 8)
@@ -244,6 +246,7 @@ def _launch(eig, pi, rates, row_codes, sched_src, sched_penc, sched_len,
     if rc != 0:
         raise DeviceError(f"pruning kernel launch failed: cudaError {rc}")
     launches += 1
+    profiling.count("pruning_launches")
     return out
 
 

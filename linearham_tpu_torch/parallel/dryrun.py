@@ -235,7 +235,6 @@ def _dryrun_rank(devices, payload) -> dict:
                                                    pooled_repertoire_summary,
                                                    sharded_pipeline, span)
     from linearham_tpu_torch.parallel.repertoire import run_repertoire
-    from linearham_tpu_torch.utils.profiling import StageTimer
     from linearham_tpu_torch.utils.runtime import resolve_dtype
 
     world = dist.get_world_size()
@@ -253,7 +252,7 @@ def _dryrun_rank(devices, payload) -> dict:
     F, T = n_fam, n_tr * -(-8 // n_tr)
     task = _synthetic_task(device, dtype, T, seed=0, n_seqs=8)
     blocks = [FamilyBlock(i, task, slice(0, T)) for i in range(F)]
-    done = sharded_pipeline(mesh, blocks, 4, 0, dtype, StageTimer())
+    done = sharded_pipeline(mesh, blocks, 4, 0, dtype)
     loglik = np.stack([d[0] for d in done])
     if loglik.shape != (F, T) or not np.isfinite(loglik).all():
         raise RuntimeError(f"sharded step: log-likelihoods {loglik}")

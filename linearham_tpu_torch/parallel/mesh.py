@@ -37,7 +37,6 @@ What differs from the JAX module, and why:
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import Any, ClassVar, Dict, List, Optional, Sequence, Tuple
@@ -52,7 +51,7 @@ from linearham_tpu_torch.ops.gtr import GTREigen
 from linearham_tpu_torch.ops.pruning_cuda import (site_log_likelihoods,
                                                   stack_schedules)
 from linearham_tpu_torch.pipeline.run import _to_host, prepare_ensemble
-from linearham_tpu_torch.utils.profiling import StageTimer
+from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.runtime import to_device
 
 AXIS_NAMES = ("fam", "trees")
@@ -81,8 +80,6 @@ class FamilyMesh:
     ``trees_group`` joins this rank's row (the ranks that share its
     families), ``mesh_group`` every rank of the mesh; both are None for a
     mesh of one without a process group, and then no collective runs.
-    ``gather_s`` accumulates the seconds this rank spent in result
-    gathers.
     """
 
     shape: Dict[str, int]
@@ -90,7 +87,6 @@ class FamilyMesh:
     device: torch.device
     trees_group: Optional[Any] = None
     mesh_group: Optional[Any] = None
-    gather_s: float = 0.0
     axis_names: ClassVar[Tuple[str, str]] = AXIS_NAMES
 
     @property
@@ -205,19 +201,20 @@ def block_generator(seed: int, block: FamilyBlock,
 
 
 def stacked_site_ll(blocks: Sequence[FamilyBlock], num_rates: int,
-                    device: torch.device, dtype: torch.dtype,
-                    timer: StageTimer):
+                    device: torch.device, dtype: torch.dtype):
     """ONE pruning launch over every block's trees.
 
     Returns (site log-likelihoods [sum_b T_b, X_max] on ``device``, the
     ``StackedSchedule`` that says which rows and columns are block b's, pi
-    [sum_b T_b, 4] on ``device``).  Stages: stack_families,
-    device_transfer, device_step (the launch).
+    [sum_b T_b, 4] on ``device``, and on the card a chunk_device
+    ``profiling.CudaSpan`` begun before the first host-to-device copy, else
+    None).  Spans (``utils.profiling``): stack_families, device_transfer,
+    device_step (the launch).
     """
     def put(a):
         return to_device(a, device, dtype, non_blocking=True)
 
-    with timer.stage("stack_families"):
+    with profiling.span("stack_families"):
         samples = [b.task.samples[b.trees] for b in blocks]
         preps = [prepare_ensemble(b.task.hmm, s, num_rates)
                  for b, s in zip(blocks, samples)]
@@ -229,71 +226,77 @@ def stacked_site_ll(blocks: Sequence[FamilyBlock], num_rates: int,
         pi = np.concatenate([np.asarray(s.pi) for s in samples])
         rates = np.concatenate([p[2] for p in preps])
 
-    with timer.stage("device_transfer"):
+    span = profiling.cuda_span("chunk_device", device)
+    with profiling.span("device_transfer"):
         s = stacked.sched
         codes_t, src_t, penc_t, len_t, root_t = (
             put(a) for a in (stacked.codes, s.src, s.penc, s.length, s.root))
         eig_t = GTREigen(*(put(a) for a in eig))
         pi_t, rates_t = put(pi), put(rates)
 
-    with timer.stage("device_step"):
+    with profiling.span("device_step"):
         site_ll = site_log_likelihoods(
             eig_t, pi_t, rates_t, codes_t, src_t, penc_t, len_t, root_t,
             s.n_slots)
-    return site_ll, stacked, pi_t
+    return site_ll, stacked, pi_t, span
 
 
 def multi_family_step(blocks: Sequence[FamilyBlock], num_rates: int,
-                      seed: int, device: torch.device, dtype: torch.dtype,
-                      timer: StageTimer) -> list:
+                      seed: int, device: torch.device,
+                      dtype: torch.dtype) -> list:
     """ONE pruning launch over every block's trees (``stacked_site_ll``),
     then each block's post-pruning step (naive prior, region emissions,
     forward, FFBS) on its slice ``site_ll[trees_b, :X_b]``.
 
     Returns, per block, (log-likelihoods [n_trees] float64, sampled path
-    with numpy leaves).  Stages: stack_families, device_transfer,
-    device_step.
+    with numpy leaves).  Spans: stack_families, device_transfer,
+    device_step, and on the card chunk_device (CUDA events from before the
+    first host-to-device copy to the last result's landing).  Counter:
+    chunks.
     """
-    site_ll, stacked, pi_t = stacked_site_ll(blocks, num_rates, device,
-                                             dtype, timer)
-    with timer.stage("device_step"):
+    site_ll, stacked, pi_t, span = stacked_site_ll(blocks, num_rates,
+                                                   device, dtype)
+    with profiling.span("device_step"):
         host = []
         for f, b in enumerate(blocks):
             rows = stacked.trees(f)
             loglik, _, path = b.task.hmm.step_from_site_ll(
                 site_ll[rows, :stacked.n_cols[f]], pi_t[rows],
                 block_generator(seed, b, device))
-            host.append(_to_host(loglik, path))
+            # The last block's copies end the bucket's device span.
+            host.append(_to_host(loglik, path,
+                                 span if f == len(blocks) - 1 else None))
         for _, _, done in host:
             done()
+    profiling.count("chunks")
     return [(loglik_h.numpy().astype(np.float64), path_to_numpy(path_h))
             for loglik_h, path_h, _ in host]
 
 
 def sharded_pipeline(mesh: FamilyMesh, blocks: Sequence[FamilyBlock],
-                     num_rates: int, seed: int, dtype: torch.dtype,
-                     timer: StageTimer
+                     num_rates: int, seed: int, dtype: torch.dtype
                      ) -> List[Tuple[np.ndarray, List[Annotation]]]:
     """Run this rank's share of a bucket (``blocks``: whole families, in
     task order), decode it here, and gather every rank's share.
 
     Returns, on every rank and for every block of ``blocks``, the family's
-    (log-likelihoods [T], annotations [T]).  Stages: those of
-    ``multi_family_step``, then decode (decode and gather).
+    (log-likelihoods [T], annotations [T]).  Spans: those of
+    ``multi_family_step``, then decode (decode and, on a mesh with a
+    process group, gather inside it).
     """
     share = shard_family_batch(mesh, blocks)
-    stepped = multi_family_step(share, num_rates, seed, mesh.device, dtype,
-                                timer) if share else []
-    with timer.stage("decode"):
+    stepped = multi_family_step(share, num_rates, seed, mesh.device,
+                                dtype) if share else []
+    with profiling.span("decode"):
         pieces = [(b.index, b.trees.start, loglik,
                    b.task.hmm.decode_batch(path))
                   for b, (loglik, path) in zip(share, stepped)]
         if mesh.mesh_group is not None:
-            t0 = time.perf_counter()
-            gathered = [None] * mesh.size
-            dist.all_gather_object(gathered, pieces, group=mesh.mesh_group)
-            pieces = [p for rank_pieces in gathered for p in rank_pieces]
-            mesh.gather_s += time.perf_counter() - t0
+            with profiling.span("gather"):
+                gathered = [None] * mesh.size
+                dist.all_gather_object(gathered, pieces,
+                                       group=mesh.mesh_group)
+                pieces = [p for rank_pieces in gathered for p in rank_pieces]
         by_family: Dict[int, list] = {}
         for index, start, loglik, anns in sorted(pieces,
                                                  key=lambda p: p[:2]):

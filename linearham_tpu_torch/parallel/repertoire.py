@@ -57,11 +57,9 @@ from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch
 from linearham_tpu_torch.parallel.mesh import (FamilyBlock, FamilyMesh,
                                                local_mesh, sharded_pipeline)
 from linearham_tpu_torch.pipeline.run import write_tsv_header, write_tsv_rows
+from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.fileio import atomic_write
-from linearham_tpu_torch.utils.profiling import StageTimer
 from linearham_tpu_torch.utils.runtime import resolve_device, resolve_dtype
-
-STAGES = ("stack_families", "device_transfer", "device_step", "decode")
 
 
 @dataclass
@@ -112,9 +110,11 @@ def run_repertoire(
     one); ``dtype``: None means f32 on CUDA, f64 on the CPU.  Every task's
     model must already lie on that device in that dtype.  ``mesh``
     (``parallel.mesh.make_mesh``): every rank passes the same ``tasks`` and
-    gets every family's result.  ``timings`` (optional dict) accumulates
-    seconds per stage: stack_families, device_transfer, device_step,
-    decode.  Results come back in the order of ``tasks``.
+    gets every family's result.  Spans go to the request's recorder where
+    one is active (``utils.profiling``); ``timings`` (optional dict)
+    accumulates the seconds of this call's spans per name: stack_families,
+    device_transfer, device_step, decode, and on the card chunk_device, on
+    a mesh gather.  Results come back in the order of ``tasks``.
     """
     if device is None and mesh is not None:
         device = mesh.device
@@ -130,21 +130,22 @@ def run_repertoire(
                 f"run_repertoire on {device} in {dtype}: a family's model "
                 f"lies on {t.hmm.xmsa_rows.device} in {t.hmm.dtype}")
     mesh = mesh if mesh is not None else local_mesh(device)
-    timer = StageTimer()
     results: List[Optional[FamilyResult]] = [None] * len(tasks)
-    for idxs in buckets_of(tasks):
-        blocks = [FamilyBlock(i, tasks[i],
-                              slice(0, tasks[i].samples.n_samples))
-                  for i in idxs]
-        done = sharded_pipeline(mesh, blocks, num_rates, seed, dtype, timer)
-        for i, (loglik, anns) in zip(idxs, done):
-            results[i] = FamilyResult(
-                loglik=loglik, logweight=loglik - tasks[i].samples.rb_loglik,
-                annotations=anns)
+    with profiling.recording() as timer:
+        first = len(timer.spans)
+        for idxs in buckets_of(tasks):
+            blocks = [FamilyBlock(i, tasks[i],
+                                  slice(0, tasks[i].samples.n_samples))
+                      for i in idxs]
+            done = sharded_pipeline(mesh, blocks, num_rates, seed, dtype)
+            for i, (loglik, anns) in zip(idxs, done):
+                results[i] = FamilyResult(
+                    loglik=loglik,
+                    logweight=loglik - tasks[i].samples.rb_loglik,
+                    annotations=anns)
     if timings is not None:
-        spent = timer.as_dict()
-        for k in STAGES:
-            timings[k] = timings.get(k, 0.0) + spent.get(k, 0.0)
+        for s in timer.spans[first:]:
+            timings[s.name] = timings.get(s.name, 0.0) + s.seconds
     return results
 
 

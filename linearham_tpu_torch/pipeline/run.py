@@ -16,10 +16,9 @@ Output columns match the reference contract exactly
 from __future__ import annotations
 
 import contextlib
-import os
+import json
 import re
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, TextIO
@@ -35,8 +34,8 @@ from linearham_tpu_torch.models.decode import Annotation
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
 from linearham_tpu_torch.ops.ffbs import SampledPath, path_to_numpy
 from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch, gtr_eigen
+from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.fileio import atomic_write
-from linearham_tpu_torch.utils.profiling import StageTimer
 from linearham_tpu_torch.utils.runtime import resolve_dtype
 
 _COMMENT_RE = re.compile(r"\[[^\]]*\]")
@@ -51,7 +50,8 @@ class PipelineResult:
     lh_loglik: np.ndarray        # [T]
     logweight: np.ndarray        # [T]
     annotations: List[Annotation]
-    timings: Optional[dict] = None  # stage -> seconds
+    timings: Optional[dict] = None   # span name -> seconds
+    counters: Optional[dict] = None  # counter name -> count
 
 
 def prepare_ensemble(hmm: PhyloHMM, samples: TreeSamples, num_rates: int,
@@ -74,16 +74,22 @@ def prepare_ensemble(hmm: PhyloHMM, samples: TreeSamples, num_rates: int,
     return build_schedule(tb), gtr_eigen(samples.er, samples.pi), rates
 
 
-def _to_host(loglik: torch.Tensor, path: SampledPath):
+def _to_host(loglik: torch.Tensor, path: SampledPath,
+             span: Optional[profiling.CudaSpan] = None):
     """Start the device->host copies of one chunk's results.  Returns
-    (loglik, path, done): ``done()`` blocks until the copies landed."""
+    (loglik, path, done): ``done()`` blocks until the copies landed.
+    ``span``, begun before the chunk's first host-to-device copy, ends
+    with the copies, and ``done()`` records it."""
     if loglik.device.type != "cuda":
         return loglik, path, lambda: None
     host = [None if a is None else a.to("cpu", non_blocking=True)
             for a in (loglik, *path)]
-    event = torch.cuda.Event()
-    event.record()
-    return host[0], SampledPath(*host[1:]), event.synchronize
+    if span is None:
+        event = torch.cuda.Event()
+        event.record()
+        return host[0], SampledPath(*host[1:]), event.synchronize
+    span.close()
+    return host[0], SampledPath(*host[1:]), span.wait
 
 
 def _drain_chunk(hmm, timer, logliks, annotations, start, n, loglik_h,
@@ -98,7 +104,8 @@ def _drain_chunk(hmm, timer, logliks, annotations, start, n, loglik_h,
         anns = hmm.decode_batch(path_to_numpy(path_h))
         annotations.extend(anns)
     if on_chunk is not None:
-        on_chunk(start, n, loglik_np, anns)
+        with timer.stage("write_tsv"):
+            on_chunk(start, n, loglik_np, anns)
 
 
 def run_pipeline_arrays(
@@ -110,7 +117,6 @@ def run_pipeline_arrays(
     on_chunk=None,
     rates: Optional[np.ndarray] = None,
     max_chunks: Optional[int] = None,
-    trace_dir: Optional[str] = None,
 ) -> PipelineResult:
     """Run the whole ensemble through the device step, chunk by chunk.
 
@@ -119,65 +125,53 @@ def run_pipeline_arrays(
     [T, R] are the gamma rates if the caller already has them.
     ``max_chunks`` stops after that many chunks (the warmup path): shapes
     still come from the whole ensemble, and the results cover only the
-    rows run.  ``trace_dir`` writes a torch.profiler trace of the chunk
-    loop there (see ``_maybe_trace``).
+    rows run.
+
+    Spans (``utils.profiling``; the request's recorder where one is active):
+    host_prepare, then per chunk device_transfer and dispatch on this
+    thread, device_step, decode and write_tsv (around ``on_chunk``) on the
+    drain thread, chunk_device on the device (CUDA events from before the
+    chunk's first host-to-device copy to its results' landing); then
+    drain_wait, this thread's wait for the drain.  Counter: chunks.
     """
-    timer = StageTimer()
-    T = samples.n_samples
-    chunk_size = max(1, min(chunk_size, T))
-    generator = torch.Generator(device=hmm.device)
-    generator.manual_seed(seed)
+    with profiling.recording() as timer:
+        T = samples.n_samples
+        chunk_size = max(1, min(chunk_size, T))
+        generator = torch.Generator(device=hmm.device)
+        generator.manual_seed(seed)
 
-    with timer.stage("host_prepare"):
-        sched, eig, rates = prepare_ensemble(hmm, samples, num_rates, rates)
+        with timer.stage("host_prepare"):
+            sched, eig, rates = prepare_ensemble(hmm, samples, num_rates,
+                                                 rates)
 
-    starts = list(range(0, T, chunk_size))[:max_chunks]
-    logliks = np.zeros(T)
-    annotations: List[Annotation] = []
-    futures = []
-    with _maybe_trace(trace_dir, hmm.device), \
-            ThreadPoolExecutor(1) as drain_pool:
-        for start in starts:
-            idx = np.arange(start, min(start + chunk_size, T))
-            with timer.stage("device_transfer"):
-                inputs = hmm.ensemble_inputs(sched, eig, samples.pi, rates,
-                                             idx, non_blocking=True)
-            with timer.stage("dispatch"):
-                loglik, _, path = hmm.step(*inputs, generator, sched.n_slots)
-                host = _to_host(loglik, path)
-            futures.append(drain_pool.submit(
-                _drain_chunk, hmm, timer, logliks, annotations, start,
-                len(idx), *host, on_chunk=on_chunk))
-        for f in futures:
-            f.result()   # propagate drain errors; also the tail barrier
+        starts = list(range(0, T, chunk_size))[:max_chunks]
+        logliks = np.zeros(T)
+        annotations: List[Annotation] = []
+        futures = []
+        with ThreadPoolExecutor(1) as drain_pool:
+            for start in starts:
+                idx = np.arange(start, min(start + chunk_size, T))
+                span = profiling.cuda_span("chunk_device", hmm.device)
+                with timer.stage("device_transfer"):
+                    inputs = hmm.ensemble_inputs(sched, eig, samples.pi,
+                                                 rates, idx,
+                                                 non_blocking=True)
+                with timer.stage("dispatch"):
+                    loglik, _, path = hmm.step(*inputs, generator,
+                                               sched.n_slots)
+                    host = _to_host(loglik, path, span)
+                timer.count("chunks")
+                futures.append(drain_pool.submit(
+                    _drain_chunk, hmm, timer, logliks, annotations, start,
+                    len(idx), *host, on_chunk=on_chunk))
+            with timer.stage("drain_wait"):
+                for f in futures:
+                    f.result()   # propagate drain errors; the tail barrier
 
     return PipelineResult(
         samples=samples, rates=rates, lh_loglik=logliks,
         logweight=logliks - samples.rb_loglik, annotations=annotations,
-        timings=timer.as_dict())
-
-
-@contextlib.contextmanager
-def _maybe_trace(trace_dir: Optional[str], device: torch.device):
-    """A torch.profiler trace (CPU activity, plus CUDA kernels on a CUDA
-    device) of the block, written as a Chrome trace JSON file into
-    ``trace_dir``; a no-op without a directory.  The counterpart of
-    linearham_tpu/utils/profiling.py:maybe_trace."""
-    if trace_dir is None:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        trace_dir, f"pipeline.{os.getpid()}.{time.time_ns()}.trace.json"))
+        timings=timer.as_dict(), counters=dict(timer.counters))
 
 
 def write_tsv_header(num_rates: int, heavy: bool, outfile: TextIO) -> None:
@@ -264,41 +258,52 @@ def run_pipeline(
     CUDA, f64 on the CPU).  The family is built through the family disk
     cache (compiler/family_cache.py).  Rows are streamed to a temp file
     that is renamed into place only on success, so a crash leaves no
-    partial TSV.  ``trace_dir``: see ``run_pipeline_arrays``.
+    partial TSV.  ``trace_dir``: write a torch.profiler trace of the whole
+    call there (``utils.profiling.trace``).
+
+    Spans, besides ``run_pipeline_arrays``'s: load_trees_tsv, build_hmm
+    (``cached_phylo_hmm``'s spans inside), gamma_rates, open_output and
+    rename_output.  ``timings`` and ``counters`` cover the whole call.
     """
-    t0 = time.perf_counter()
-    samples = load_tree_samples(input_path)
-    load_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hmm = cached_phylo_hmm(yaml_path, cluster_ind, hmm_param_dir, seed=seed,
-                           device=device,
-                           dtype=resolve_dtype(precision, device))
-    build_s = time.perf_counter() - t0
+    with profiling.recording() as timer, profiling.trace(
+            trace_dir, device, timer, "pipeline"):
+        with timer.stage("load_trees_tsv"):
+            samples = load_tree_samples(input_path)
+        with timer.stage("build_hmm"):
+            hmm = cached_phylo_hmm(yaml_path, cluster_ind, hmm_param_dir,
+                                   seed=seed, device=device,
+                                   dtype=resolve_dtype(precision, device))
+        with timer.stage("gamma_rates"):
+            rates = gamma_category_rates_batch(samples.alpha, num_rates)
+        heavy = hmm.heavy
+        with contextlib.ExitStack() as output:
+            with timer.stage("open_output"):
+                fh = output.enter_context(atomic_write(output_path))
+                write_tsv_header(num_rates, heavy, fh)
 
-    rates = gamma_category_rates_batch(samples.alpha, num_rates)
-    heavy = hmm.heavy
-    write_s = [0.0]
-    with atomic_write(output_path) as fh:
-        write_tsv_header(num_rates, heavy, fh)
+            def on_chunk(start, n, loglik, anns):
+                lw = loglik - samples.rb_loglik[start:start + n]
+                write_tsv_rows(samples, rates, loglik, lw, anns, start, n,
+                               heavy, fh)
 
-        def on_chunk(start, n, loglik, anns):
-            t0 = time.perf_counter()
-            lw = loglik - samples.rb_loglik[start:start + n]
-            write_tsv_rows(samples, rates, loglik, lw, anns, start, n,
-                           heavy, fh)
-            write_s[0] += time.perf_counter() - t0
-
-        result = run_pipeline_arrays(hmm, samples, num_rates, seed=seed,
-                                     chunk_size=chunk_size,
-                                     on_chunk=on_chunk, rates=rates,
-                                     trace_dir=trace_dir)
-    result.timings["build_hmm"] = build_s
-    result.timings["load_trees_tsv"] = load_s
-    result.timings["write_tsv"] = write_s[0]
+            result = run_pipeline_arrays(hmm, samples, num_rates, seed=seed,
+                                         chunk_size=chunk_size,
+                                         on_chunk=on_chunk, rates=rates)
+            with timer.stage("rename_output"):
+                output.close()   # the file is whole: rename it into place
+    result.timings = timer.as_dict()
+    result.counters = dict(timer.counters)
     if profile:
-        total = sum(result.timings.values())
-        print(f"# pipeline timings ({samples.n_samples} trees, "
-              f"{total * 1e3:.0f}ms total):", file=sys.stderr)
-        for k, v in result.timings.items():
-            print(f"#   {k}: {v * 1e3:.1f}ms", file=sys.stderr)
+        print(f"# pipeline timings ({samples.n_samples} trees):",
+              file=sys.stderr)
+        print_profile(result.timings, result.counters)
     return result
+
+
+def print_profile(timings: dict, counters: dict) -> None:
+    """``--profile``'s lines on stderr: ``#   <span>: <ms>ms`` a span name,
+    then ``# counters: <JSON>``."""
+    for k, v in timings.items():
+        print(f"#   {k}: {v * 1e3:.1f}ms", file=sys.stderr)
+    print(f"# counters: {json.dumps(counters, sort_keys=True)}",
+          file=sys.stderr)

@@ -22,6 +22,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.runtime import DeviceError
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -75,7 +76,8 @@ def _compile(nvcc: str, source: Path, out: Path) -> str:
 def build_source(source: Path, name: str) -> Path:
     """Compile ``source`` (if not already built) into
     ``build/kernels/<name>-<key>.so`` and return its path.  The ptxas
-    report is kept beside it as ``<lib>.log``."""
+    report is kept beside it as ``<lib>.log``.  A build is a kernel_build
+    span and counts in kernel_builds (``utils.profiling``)."""
     nvcc = find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout
@@ -84,7 +86,9 @@ def build_source(source: Path, name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    lib.with_suffix(".log").write_text(_compile(nvcc, source, tmp))
+    with profiling.span("kernel_build"):
+        lib.with_suffix(".log").write_text(_compile(nvcc, source, tmp))
+    profiling.count("kernel_builds")
     os.replace(tmp, lib)   # atomic: concurrent builds each leave a whole file
     return lib
 
@@ -107,4 +111,7 @@ def build_library(name: str) -> Path:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build_library(name)))
+    """``csrc/<name>.cu``'s library, built if need be and loaded: a
+    kernel_load span (``utils.profiling``), a kernel_build inside it."""
+    with profiling.span("kernel_load"):
+        return ctypes.CDLL(str(build_library(name)))

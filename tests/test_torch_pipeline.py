@@ -309,6 +309,9 @@ def test_cli_serve_answers_each_request(fixtures_dir, tsv, tmp_path):
     for a, name in zip((answers[0], answers[2]), ("a.tsv", "c.tsv")):
         assert a["output_path"] == str(tmp_path / name)
         assert a["n_trees"] == 5 and a["kernel_launches"] == 0
+        assert {"load_trees_tsv", "build_hmm", "dispatch", "decode",
+                "write_tsv", "drain_wait"} <= set(a["stages"])
+        assert a["counters"]["chunks"] == 3
         assert len(_read(tmp_path / name)[1]) == 5
     assert not (tmp_path / "b.tsv").exists()
     assert not (tmp_path / "d.tsv").exists()       # after quit

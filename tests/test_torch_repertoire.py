@@ -301,8 +301,10 @@ def _cli(*argv, env=None):
 
 def test_cli_repertoire_on_the_synthetic_writer(tmp_path):
     """write_repertoire_inputs' igh manifest (three depths sharing one
-    germline directory) through ``cli repertoire --profile``; every family
-    equals its single-family pipeline."""
+    germline directory) through ``cli repertoire --profile --trace-dir``;
+    every family equals its single-family pipeline, every stage line is one
+    the benchmark reads, and the trace holds the program's spans."""
+    from benchmark.drivers import _PROFILE_RE
     from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
 
     reps = write_repertoire_inputs(
@@ -314,13 +316,26 @@ def test_cli_repertoire_on_the_synthetic_writer(tmp_path):
     assert [m.shape[0] for m in msas] == [3, 6, 9]
     assert all(f.family.genes.keys() == igh.families[0].family.genes.keys()
                for f in igh.families)
+    trace_dir = tmp_path / "trace"
     proc = _cli("repertoire", "--families", igh.manifest, "--hmm-param-dir",
                 igh.gene_dir, "--num-rates", "4", "--profile", "--device",
-                "cpu", env={"LINEARHAM_FAMILY_CACHE": "off"})
+                "cpu", "--trace-dir", str(trace_dir),
+                env={"LINEARHAM_FAMILY_CACHE": "off"})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("repertoire ok: 3 families, 12 trees in ")
-    for stage in STAGES | {"build_hmm", "load_trees_tsv", "write_tsv"}:
-        assert f"#   {stage}: " in proc.stderr
+    stage_lines = [ln for ln in proc.stderr.splitlines()
+                   if ln.startswith("#   ")]
+    stages = {_PROFILE_RE.match(ln).group(1) for ln in stage_lines}
+    assert STAGES | {"build_hmm", "load_trees_tsv", "write_tsv",
+                     "load_gene_map", "compile", "place"} <= stages
+    (counters,) = [json.loads(ln[len("# counters: "):])
+                   for ln in proc.stderr.splitlines()
+                   if ln.startswith("# counters: ")]
+    assert counters == {"gene_map_parses": 3, "chunks": 1}
+    (trace,) = trace_dir.glob("repertoire.*.trace.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]}
+    assert {f"stage/{s}" for s in stages} <= names
     for files, out in zip(igh.families, igh.outputs):
         lines = pathlib.Path(out).read_text().strip().split("\n")
         header = lines[0].split("\t")

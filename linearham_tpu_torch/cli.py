@@ -290,6 +290,7 @@ def _repertoire(args, dtype) -> int:
 
     t0 = time.perf_counter()
     rows = read_manifest(args.families)
+    gene_maps: dict = {}  # one parse of the germline directory a call
     with profiling.recording() as timer, profiling.trace(
             args.trace_dir, args.device, timer, "repertoire"):
         tasks = []
@@ -299,7 +300,7 @@ def _repertoire(args, dtype) -> int:
             with timer.stage("build_hmm"):
                 hmm = cached_phylo_hmm(yaml_path, ci, args.hmm_param_dir,
                                        seed=args.seed, device=args.device,
-                                       dtype=dtype)
+                                       dtype=dtype, gene_maps=gene_maps)
             tasks.append(FamilyTask(hmm=hmm, samples=samples))
         results = run_repertoire(tasks, num_rates=args.num_rates,
                                  seed=args.seed, device=args.device,

@@ -70,17 +70,23 @@ def family_key(yaml_path: str, cluster_ind: int, hmm_param_dir: str,
 
 def cached_phylo_hmm(yaml_path: str, cluster_ind: int, hmm_param_dir: str,
                      seed: int = 0, device=None, dtype=None,
-                     cache_dir: Optional[str] = None) -> PhyloHMM:
+                     cache_dir: Optional[str] = None,
+                     gene_maps: Optional[dict] = None) -> PhyloHMM:
     """``PhyloHMM(yaml_path, cluster_ind, hmm_param_dir, ...)`` through the
     family disk cache.
 
     Hit: unpickle the host products and place them on ``device``.  Miss:
     build, then persist the host products (atomic rename; concurrent
     writers race benignly).  An unreadable entry is deleted and rebuilt.
+    ``gene_maps`` is ``load_host_products``'s: a caller that builds several
+    families passes one dict, and a miss parses a germline directory only
+    if no earlier build of the call did.  The key and the entry are the
+    same with it or without.
 
     Spans (``utils.profiling``): family_key, cache_read, then on a miss
     ``load_host_products``'s and cache_write; place.  Counters: cache_hits,
-    cache_misses (with a cache directory only).
+    cache_misses (with a cache directory only), and on a miss
+    ``load_host_products``'s.
     """
     device = resolve_device(device)
     dtype = resolve_dtype(dtype, device)
@@ -107,7 +113,8 @@ def cached_phylo_hmm(yaml_path: str, cluster_ind: int, hmm_param_dir: str,
         profiling.count("cache_misses" if host is None else "cache_hits")
 
     if host is None:
-        host = load_host_products(yaml_path, cluster_ind, hmm_param_dir)
+        host = load_host_products(yaml_path, cluster_ind, hmm_param_dir,
+                                  gene_maps)
         if path is not None:
             with profiling.span("cache_write"):
                 try:

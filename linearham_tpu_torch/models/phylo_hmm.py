@@ -216,16 +216,30 @@ def host_products(cluster: ClusterData, genes, msa: np.ndarray) -> dict:
 
 
 def load_host_products(yaml_path: str, cluster_ind: int,
-                       hmm_param_dir: str) -> dict:
+                       hmm_param_dir: str,
+                       gene_maps: Optional[dict] = None) -> dict:
     """``host_products`` of one family read from its partis YAML and its
-    germline parameter directory.  Spans (``utils.profiling``):
-    load_cluster, load_gene_map, compile (state space, transitions, xMSA,
-    emission maps).  Counter: gene_map_parses."""
+    germline parameter directory.
+
+    ``gene_maps`` (optional, owned by the caller) maps a germline directory
+    to its parsed gene map, so the families of one call parse a directory
+    they share once: the directory is parsed only when absent, then stored.
+    Nothing of a family's build writes to the map.
+
+    Spans (``utils.profiling``): load_cluster, load_gene_map (a parse only),
+    compile (state space, transitions, xMSA, emission maps).  Counters:
+    gene_map_parses, gene_map_shared (a map taken from ``gene_maps``)."""
     with profiling.span("load_cluster"):
         cluster = load_cluster(yaml_path, cluster_ind)
-    with profiling.span("load_gene_map"):
-        genes = load_gene_map(hmm_param_dir)
-    profiling.count("gene_map_parses")
+    genes = None if gene_maps is None else gene_maps.get(hmm_param_dir)
+    if genes is None:
+        with profiling.span("load_gene_map"):
+            genes = load_gene_map(hmm_param_dir)
+        profiling.count("gene_map_parses")
+        if gene_maps is not None:
+            gene_maps[hmm_param_dir] = genes
+    else:
+        profiling.count("gene_map_shared")
     with profiling.span("compile"):
         msa = cluster.msa_codes(next(iter(genes.values())).alphabet + "N")
         return host_products(cluster, genes, msa)

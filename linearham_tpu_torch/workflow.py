@@ -333,9 +333,11 @@ def run_repertoire_workflow(
         dtype = resolve_dtype(precision, device)
         print(f"[workflow] pipeline: batching {len(stale)} clusters "
               "through one repertoire workload")
+        gene_maps: dict = {}  # the clusters share one germline parse
         tasks = [
             FamilyTask(hmm=cached_phylo_hmm(cy, 0, hmm_param_dir, seed=seed,
-                                            device=device, dtype=dtype),
+                                            device=device, dtype=dtype,
+                                            gene_maps=gene_maps),
                        samples=load_tree_samples(rb))
             for cy, rb, _ in stale]
         launches = pruning_cuda.launches

@@ -5,10 +5,15 @@ log-likelihood parity at rel 1e-12, the key tracks every input's content,
 a corrupt entry is rebuilt), plus: the key changes when a source of the
 port (or a reused JAX host module) changes, the environment variable
 relocates or disables the cache, and a hit builds for the device and dtype
-asked for -- neither is memoised.
+asked for -- neither is memoised.  A germline map shared by the builds of
+one call gives the same host products, key and entry as a build alone, and
+no build writes to it.
 """
 
+import copy
+import dataclasses
 import os
+import pickle
 import shutil
 
 import numpy as np
@@ -18,7 +23,9 @@ import torch
 from linearham_tpu_torch.compiler import family_cache
 from linearham_tpu_torch.compiler.family_cache import (cached_phylo_hmm,
                                                       family_key)
-from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
+from linearham_tpu_torch.io.germline import load_gene_map
+from linearham_tpu_torch.models.phylo_hmm import PhyloHMM, load_host_products
+from linearham_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -161,3 +168,78 @@ def test_environment_relocates_or_disables(family_files, tmp_path,
     hmm = cached_phylo_hmm(yaml_path, 0, gene_dir, device="cpu")
     assert not where.exists()
     assert np.asarray(hmm.xmsa.matrix).shape[0] == len(hmm.xmsa.labels)
+
+
+def _assert_same(a, b, path="genes"):
+    """Equal in value, type and structure, arrays by dtype and content."""
+    assert type(a) is type(b), path
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _assert_same(getattr(a, f.name), getattr(b, f.name),
+                         f"{path}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif isinstance(a, dict):
+        assert list(a) == list(b), path
+        for k in a:
+            _assert_same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, (path, a, b)
+
+
+def test_shared_gene_map_builds_what_a_lone_build_does(fixtures_dir,
+                                                       tmp_path):
+    """The second family of a call takes the first's parse: its host
+    products pickle byte-equal to a build that parses alone, its entry has
+    the same key and bytes, and a hit of that entry equals the miss."""
+    gene_dir = str(fixtures_dir / "hmm_params")
+    first, second = (str(fixtures_dir / n) for n in (
+        "phylo_hmm_input.yaml", "phylo_hmm_input_extra.yaml"))
+    gene_maps = {}
+    with profiling.recording() as timer:
+        load_host_products(first, 0, gene_dir, gene_maps)
+        shared = load_host_products(second, 0, gene_dir, gene_maps)
+    assert timer.counters == {"gene_map_parses": 1, "gene_map_shared": 1}
+    assert shared["genes"] is gene_maps[gene_dir]
+    assert pickle.dumps(shared) == pickle.dumps(
+        load_host_products(second, 0, gene_dir))
+
+    alone, with_map = tmp_path / "alone", tmp_path / "with_map"
+    cached_phylo_hmm(second, 0, gene_dir, device="cpu",
+                     cache_dir=str(alone))
+    with profiling.recording() as timer:
+        miss = cached_phylo_hmm(second, 0, gene_dir, device="cpu",
+                                cache_dir=str(with_map), gene_maps=gene_maps)
+    assert timer.counters == {"cache_misses": 1, "gene_map_shared": 1}
+    (entry,) = os.listdir(with_map)
+    assert os.listdir(alone) == [entry] == [
+        family_key(second, 0, gene_dir, "float64") + ".pkl"]
+    assert (with_map / entry).read_bytes() == (alone / entry).read_bytes()
+    with profiling.recording() as timer:
+        hit = cached_phylo_hmm(second, 0, gene_dir, device="cpu",
+                               cache_dir=str(with_map), gene_maps={})
+    assert timer.counters == {"cache_hits": 1}
+    want, got = dict(miss.named_buffers()), dict(hit.named_buffers())
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+def test_builds_leave_the_shared_gene_map_unchanged(fixtures_dir, tmp_path):
+    """Two families of other flexbounds built and placed from one map: the
+    map equals, deeply, a copy taken before either build."""
+    gene_dir = str(fixtures_dir / "hmm_params")
+    gene_maps = {gene_dir: load_gene_map(gene_dir)}
+    before = copy.deepcopy(gene_maps)
+    hmms = [cached_phylo_hmm(str(fixtures_dir / n), 0, gene_dir,
+                             device="cpu", cache_dir=str(tmp_path / "fc"),
+                             gene_maps=gene_maps)
+            for n in ("phylo_hmm_input.yaml", "phylo_hmm_input_extra.yaml")]
+    assert hmms[0].space.flexbounds != hmms[1].space.flexbounds
+    assert hmms[0].genes is hmms[1].genes is gene_maps[gene_dir]
+    _assert_same(before, gene_maps)

@@ -331,7 +331,8 @@ def test_cli_repertoire_on_the_synthetic_writer(tmp_path):
     (counters,) = [json.loads(ln[len("# counters: "):])
                    for ln in proc.stderr.splitlines()
                    if ln.startswith("# counters: ")]
-    assert counters == {"gene_map_parses": 3, "chunks": 1}
+    assert counters == {"gene_map_parses": 1, "gene_map_shared": 2,
+                        "chunks": 1}
     (trace,) = trace_dir.glob("repertoire.*.trace.json")
     names = {e.get("name") for e in json.loads(trace.read_text())[
         "traceEvents"]}
@@ -346,6 +347,64 @@ def test_cli_repertoire_on_the_synthetic_writer(tmp_path):
         ref = run_pipeline_arrays(hmm, load_tree_samples(files.trees_path),
                                   num_rates=4)
         np.testing.assert_allclose(got, ref.lh_loglik, rtol=1e-9)
+
+
+def _repertoire_counters(manifest, gene_dir, capsys) -> dict:
+    """``cli repertoire --profile`` in process: its ``# counters:`` line."""
+    from linearham_tpu_torch import cli
+
+    capsys.readouterr()
+    assert cli.main(["repertoire", "--families", manifest, "--hmm-param-dir",
+                     gene_dir, "--num-rates", "4", "--seed", "7",
+                     "--profile", "--device", "cpu"]) == 0
+    (line,) = [ln for ln in capsys.readouterr().err.splitlines()
+               if ln.startswith("# counters: ")]
+    return json.loads(line[len("# counters: "):])
+
+
+def test_cli_repertoire_parses_the_shared_gene_dir_once(tmp_path, capsys,
+                                                        monkeypatch):
+    """A cold call over four families of one germline directory parses it
+    once and shares it three times; a warm call over the same cache parses
+    nothing; and the TSVs equal, byte for byte, those of a call in which
+    every family parses the directory itself."""
+    from linearham_tpu_torch.compiler import family_cache
+
+    (igh,) = write_repertoire_inputs(
+        str(tmp_path / "in"), [("igh", 3, 4, 0.02), ("igh", 5, 3, 0.05),
+                               ("igh", 4, 5, 0.08), ("igh", 6, 2, 0.03)]
+    ).values()
+    rows = [ln.split("\t") for ln in
+            pathlib.Path(igh.manifest).read_text().splitlines()]
+    assert len(rows) == 4
+
+    def call(name, cache):
+        outdir = tmp_path / name
+        outdir.mkdir()
+        manifest = outdir / "manifest.tsv"
+        manifest.write_text("".join(
+            f"{y}\t{ci}\t{t}\t{outdir / f'f{i}.tsv'}\n"
+            for i, (y, ci, t, _) in enumerate(rows)))
+        monkeypatch.setenv("LINEARHAM_FAMILY_CACHE", str(tmp_path / cache))
+        counters = _repertoire_counters(str(manifest), igh.gene_dir, capsys)
+        return counters, [(outdir / f"f{i}.tsv").read_bytes()
+                          for i in range(len(rows))]
+
+    cold, shared = call("cold", "fc")
+    assert cold == {"cache_misses": 4, "gene_map_parses": 1,
+                    "gene_map_shared": 3, "chunks": 1}
+    warm, again = call("warm", "fc")
+    assert warm == {"cache_hits": 4, "chunks": 1}
+    assert again == shared
+
+    lone = family_cache.load_host_products
+    monkeypatch.setattr(
+        family_cache, "load_host_products",
+        lambda y, ci, d, gene_maps=None: lone(y, ci, d))
+    each, alone = call("alone", "fc_alone")
+    assert each == {"cache_misses": 4, "gene_map_parses": 4, "chunks": 1}
+    assert alone == shared
+    assert all(b.count(b"\n") > 1 for b in shared)
 
 
 @pytest.mark.parametrize("manifest,message", [

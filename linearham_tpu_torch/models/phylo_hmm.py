@@ -196,10 +196,17 @@ def phylo_map_step(trans, consts, xmsa_rows, naive_bases, sched: dict,
 def host_products(cluster: ClusterData, genes, msa: np.ndarray) -> dict:
     """All family-constant host arrays (numpy).  The keys match the dict
     linearham_tpu's ``PhyloHMM._host_products`` returns, so a family built
-    by either package can be handed to ``PhyloHMM.from_host_products``."""
-    space = build_state_space(
-        cluster.locus, cluster.flexbounds, cluster.relpos, genes)
-    family = compile_family(space, genes)
+    by either package can be handed to ``PhyloHMM.from_host_products``.
+
+    Span (``utils.profiling``): state_space (the layout and its transition
+    tables, for either chain).  Counter: light_chain_families (a family
+    on an igk or igl locus)."""
+    with profiling.span("state_space"):
+        space = build_state_space(
+            cluster.locus, cluster.flexbounds, cluster.relpos, genes)
+        family = compile_family(space, genes)
+    if not space.is_heavy:
+        profiling.count("light_chain_families")
     xmsa = build_xmsa(space, msa, cluster.unique_ids)
     return {
         "cluster": cluster,
@@ -227,8 +234,9 @@ def load_host_products(yaml_path: str, cluster_ind: int,
     Nothing of a family's build writes to the map.
 
     Spans (``utils.profiling``): load_cluster, load_gene_map (a parse only),
-    compile (state space, transitions, xMSA, emission maps).  Counters:
-    gene_map_parses, gene_map_shared (a map taken from ``gene_maps``)."""
+    compile (state space, transitions, xMSA, emission maps; ``state_space``
+    inside it).  Counters: gene_map_parses, gene_map_shared (a map taken
+    from ``gene_maps``), light_chain_families."""
     with profiling.span("load_cluster"):
         cluster = load_cluster(yaml_path, cluster_ind)
     genes = None if gene_maps is None else gene_maps.get(hmm_param_dir)

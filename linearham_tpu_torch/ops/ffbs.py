@@ -19,6 +19,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from linearham_tpu_torch.ops.forward import ForwardCache
+from linearham_tpu_torch.utils import profiling
 
 
 class SampledPath(NamedTuple):
@@ -77,22 +78,25 @@ def sample_path(
     cache: ForwardCache,
     heavy: bool,
 ) -> SampledPath:
-    """Draw one posterior hidden path per tree."""
+    """Draw one posterior hidden path per tree.
+
+    Span (``utils.profiling``): junction_scan, once a call around the
+    backward walks of the junction rows (and, on igh, the D germline
+    draw between them)."""
     jgerm_idx = categorical(generator, _safe_log(cache.jgerm_u))
-    if heavy:
-        dj_idx = _sample_junction_backward(
-            generator, trans["dj_jgerm"][:, jgerm_idx].T, trans["dj"],
-            cache.dj_u)
-        dgerm_idx = _sample_germline(
-            generator, trans["dgerm_dj"], dj_idx[:, 0], cache.dgerm_u)
-        vd_idx = _sample_junction_backward(
-            generator, trans["vd_dgerm"][:, dgerm_idx].T, trans["vd"],
-            cache.vd_u)
-    else:
+    with profiling.span("junction_scan"):
         dj_idx = dgerm_idx = None
+        if heavy:
+            dj_idx = _sample_junction_backward(
+                generator, trans["dj_jgerm"][:, jgerm_idx].T, trans["dj"],
+                cache.dj_u)
+            dgerm_idx = _sample_germline(
+                generator, trans["dgerm_dj"], dj_idx[:, 0], cache.dgerm_u)
+        # V-D on igh, V-J on a light chain: exit into the state drawn last.
         vd_idx = _sample_junction_backward(
-            generator, trans["vd_dgerm"][:, jgerm_idx].T, trans["vd"],
-            cache.vd_u)
+            generator,
+            trans["vd_dgerm"][:, dgerm_idx if heavy else jgerm_idx].T,
+            trans["vd"], cache.vd_u)
     vgerm_idx = _sample_germline(
         generator, trans["vgerm_vd"], vd_idx[:, 0], cache.vgerm_u)
     return SampledPath(vgerm_idx=vgerm_idx, vd_idx=vd_idx,

@@ -20,6 +20,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from linearham_tpu_torch.utils import profiling
+
 
 class ForwardCache(NamedTuple):
     """Max-normalized forward vectors kept for backward sampling."""
@@ -98,29 +100,34 @@ def forward(
     ``trans`` and ``emis`` carry the keys documented in
     linearham_tpu/ops/forward.py:forward.  Returns per-tree log-likelihood
     [T] and the forward cache for FFBS.
+
+    Span (``utils.profiling``): junction_scan, once a call around the
+    junction recursions (V-D, the D germline and D-J on igh; V-J on a light
+    chain).  Counter: junction_rows, the junction rows scanned.
     """
     vgerm_u, vgerm_scale = _normalize(
         trans["vgerm_static_log"][None] + emis["vpadding"] + emis["vgerm"])
 
-    vd_rows, vd_last, vd_scale = _junction_scan(
-        vgerm_u, vgerm_scale, trans["vgerm_vd"], trans["vd"],
-        emis["vd_junction"])
-
-    if heavy:
-        dgerm_u, dgerm_scale = _germline_contract(
-            vd_last, vd_scale, trans["vd_dgerm"],
-            torch.zeros_like(trans["dgerm_dj"][:, 0]), emis["dgerm"])
-        dj_rows, dj_last, dj_scale = _junction_scan(
-            dgerm_u, dgerm_scale, trans["dgerm_dj"], trans["dj"],
-            emis["dj_junction"])
-        jgerm_u, jgerm_scale = _germline_contract(
-            dj_last, dj_scale, trans["dj_jgerm"],
-            trans["jpadding_log"], emis["jgerm"] + emis["jpadding"])
-    else:
+    with profiling.span("junction_scan"):
+        vd_rows, last, scale = _junction_scan(
+            vgerm_u, vgerm_scale, trans["vgerm_vd"], trans["vd"],
+            emis["vd_junction"])
         dgerm_u = dj_rows = None
-        jgerm_u, jgerm_scale = _germline_contract(
-            vd_last, vd_scale, trans["vd_dgerm"],
-            trans["jpadding_log"], emis["jgerm"] + emis["jpadding"])
+        if heavy:
+            dgerm_u, dgerm_scale = _germline_contract(
+                last, scale, trans["vd_dgerm"],
+                torch.zeros_like(trans["dgerm_dj"][:, 0]), emis["dgerm"])
+            dj_rows, last, scale = _junction_scan(
+                dgerm_u, dgerm_scale, trans["dgerm_dj"], trans["dj"],
+                emis["dj_junction"])
+    profiling.count("junction_rows",
+                    vd_rows.shape[0] + (dj_rows.shape[0] if heavy else 0))
+
+    # The last junction's exit into the J germline: D-J on igh, V-J (whose
+    # tables carry the heavy chain's V-D names) on igk and igl.
+    jgerm_u, jgerm_scale = _germline_contract(
+        last, scale, trans["dj_jgerm" if heavy else "vd_dgerm"],
+        trans["jpadding_log"], emis["jgerm"] + emis["jpadding"])
 
     loglik = jgerm_scale + torch.log(jgerm_u.sum(dim=-1))
     return loglik, ForwardCache(vgerm_u=vgerm_u, vd_u=vd_rows,

@@ -23,6 +23,8 @@ from linearham_tpu_torch.pipeline.run import (run_pipeline,
                                               write_tsv_rows)
 from linearham_tpu_torch.utils.synth import write_pipeline_inputs
 
+from test_torch_profiling import junction_rows
+
 torch.set_num_threads(1)
 
 PI = [0.17, 0.19, 0.25, 0.39]
@@ -305,14 +307,18 @@ def test_cli_serve_answers_each_request(fixtures_dir, tsv, tmp_path):
     assert proc.returncode == 0, proc.stderr
     answers = [json.loads(ln) for ln in proc.stdout.splitlines()]
     assert [a["ok"] for a in answers] == [True, False, True]
+    rows = junction_rows(str(fixtures_dir / "phylo_hmm_input.yaml"), 0,
+                         str(fixtures_dir / "hmm_params"))
     assert "'input_path'" in answers[1]["error"]
     for a, name in zip((answers[0], answers[2]), ("a.tsv", "c.tsv")):
         assert a["output_path"] == str(tmp_path / name)
         assert a["n_trees"] == 5 and a["kernel_launches"] == 0
         assert {"load_trees_tsv", "build_hmm", "dispatch", "decode",
-                "write_tsv", "drain_wait"} <= set(a["stages"])
+                "write_tsv", "drain_wait", "junction_scan"} <= set(a["stages"])
         assert a["counters"]["chunks"] == 3
+        assert a["counters"]["junction_rows"] == 3 * rows
         assert len(_read(tmp_path / name)[1]) == 5
+    assert "state_space" in answers[0]["stages"]     # the cold build
     assert not (tmp_path / "b.tsv").exists()
     assert not (tmp_path / "d.tsv").exists()       # after quit
 

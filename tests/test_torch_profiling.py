@@ -154,6 +154,16 @@ def test_spans_open_profiler_ranges_only_under_the_profiler():
     assert "stage/loud" in names and "stage/quiet" not in names
 
 
+def junction_rows(yaml_path, cluster_ind, gene_dir, *_):
+    """The junction rows ``compiler/state_space`` lays out for a family:
+    V-D and D-J on igh, V-J alone on a light chain."""
+    from linearham_tpu_torch.models.phylo_hmm import load_host_products
+
+    space = load_host_products(yaml_path, cluster_ind, gene_dir)["space"]
+    return space.vd_junction.n_rows + (
+        space.dj_junction.n_rows if space.is_heavy else 0)
+
+
 @pytest.fixture
 def pipeline_args(tmp_path, monkeypatch):
     monkeypatch.setenv("LINEARHAM_FAMILY_CACHE", str(tmp_path / "fc"))
@@ -175,15 +185,17 @@ def test_run_pipeline_timings_keep_the_old_keys(pipeline_args, tmp_path):
                         chunk_size=3, device="cpu")
     assert OLD_KEYS | NEW_KEYS <= set(cold.timings)
     assert all(v >= 0 for v in cold.timings.values())
+    rows = junction_rows(*pipeline_args)
     assert cold.counters == {"cache_misses": 1, "gene_map_parses": 1,
-                             "chunks": 3}
+                             "chunks": 3, "junction_rows": 3 * rows}
     build = sum(cold.timings[k] for k in ("family_key", "cache_read",
                                           "load_cluster", "load_gene_map",
                                           "compile", "cache_write", "place"))
     assert build <= cold.timings["build_hmm"]
     warm = run_pipeline(*pipeline_args, str(tmp_path / "b.tsv"), 4,
                         chunk_size=3, device="cpu")
-    assert warm.counters == {"cache_hits": 1, "chunks": 3}
+    assert warm.counters == {"cache_hits": 1, "chunks": 3,
+                             "junction_rows": 3 * rows}
     assert "load_gene_map" not in warm.timings
     assert (tmp_path / "a.tsv").read_text().count("\n") == 8
 
@@ -270,3 +282,86 @@ def test_chunk_device_spans_on_the_card(pipeline_args, cuda_device,
         run_repertoire(tasks, device=cuda_device, timings=timings)
     assert timer.counters["chunks"] == timer.counters["pruning_launches"]
     assert timings["chunk_device"] > 0
+
+
+def _repertoire_profile(manifest, gene_dir, capsys):
+    """An in-process ``cli repertoire --profile`` call on the CPU: (span
+    names of its stage lines, its counters)."""
+    from linearham_tpu_torch import cli
+
+    assert cli.main(["repertoire", "--families", manifest, "--hmm-param-dir",
+                     gene_dir, "--num-rates", "4", "--profile", "--device",
+                     "cpu"]) == 0
+    err = capsys.readouterr().err.splitlines()
+    stages = {ln[4:].split(":")[0] for ln in err if ln.startswith("#   ")}
+    (counters,) = [json.loads(ln[len("# counters: "):]) for ln in err
+                   if ln.startswith("# counters: ")]
+    return stages, counters
+
+
+def test_cli_repertoire_profiles_the_light_chain(tmp_path, monkeypatch,
+                                                 capsys):
+    """An igk partition through ``cli repertoire --profile``: the layout's
+    and the junction scan's spans print, every family counts as a light
+    chain, and the junction rows are the V-J rows alone."""
+    monkeypatch.setenv("LINEARHAM_FAMILY_CACHE", "off")
+    igk = write_repertoire_inputs(
+        str(tmp_path), [("igk", 3, 4, 0.02), ("igk", 5, 3, 0.04),
+                        ("igk", 7, 2, 0.06)])["igk"]
+    stages, counters = _repertoire_profile(igk.manifest, igk.gene_dir,
+                                           capsys)
+    assert {"compile", "state_space", "junction_scan"} <= stages
+    assert counters["light_chain_families"] == 3
+    assert counters["junction_rows"] == sum(
+        junction_rows(f.yaml_path, 0, f.gene_dir) for f in igk.families)
+
+
+@pytest.mark.parametrize("locus", ["igh", "igk"])
+def test_junction_rows_sum_the_laid_out_rows(tmp_path, monkeypatch, capsys,
+                                             locus):
+    """``junction_rows`` is, over a call's chunks, the sum of the junction
+    rows ``compiler/state_space`` lays out for each family: one bucket a
+    partition in ``cli repertoire``, ``chunks`` chunks in ``run_pipeline``.
+    No heavy family counts as a light chain."""
+    monkeypatch.setenv("LINEARHAM_FAMILY_CACHE", "off")
+    rep = write_repertoire_inputs(
+        str(tmp_path), [(locus, 3, 4, 0.02), (locus, 6, 5, 0.05)])[locus]
+    rows = [junction_rows(f.yaml_path, 0, f.gene_dir) for f in rep.families]
+    _, counters = _repertoire_profile(rep.manifest, rep.gene_dir, capsys)
+    assert counters["chunks"] == 1
+    assert counters["junction_rows"] == sum(rows)
+    assert counters.get("light_chain_families", 0) == (
+        0 if locus == "igh" else 2)
+    f = rep.families[1]
+    result = run_pipeline(f.yaml_path, 0, f.gene_dir, f.trees_path,
+                          str(tmp_path / "o.tsv"), 4, chunk_size=2,
+                          device="cpu")
+    assert result.counters["chunks"] == 3
+    assert result.counters["junction_rows"] == 3 * rows[1]
+
+
+def test_junction_scan_opens_once_a_chunk_not_once_a_row(tmp_path,
+                                                         monkeypatch):
+    """Per chunk, the forward opens one ``junction_scan`` span and the
+    sampler one, each inside the chunk's ``dispatch``: the count follows
+    the chunks, not the rows (igh scans more rows than igk)."""
+    monkeypatch.setenv("LINEARHAM_FAMILY_CACHE", "off")
+    reps = write_repertoire_inputs(
+        str(tmp_path), [("igh", 4, 5, 0.03), ("igk", 4, 5, 0.03)])
+    rows = {}
+    for locus, rep in reps.items():
+        (f,) = rep.families
+        rows[locus] = junction_rows(f.yaml_path, 0, f.gene_dir)
+        for chunk_size in (1, 2, 5):
+            with profiling.recording() as timer:
+                result = run_pipeline(f.yaml_path, 0, f.gene_dir,
+                                      f.trees_path, str(tmp_path / "o.tsv"),
+                                      4, chunk_size=chunk_size, device="cpu")
+            chunks = result.counters["chunks"]
+            assert chunks == -(-5 // chunk_size)
+            scans = [s for s in timer.spans if s.name == "junction_scan"]
+            assert len(scans) == 2 * chunks
+            by_id = {s.id: s for s in timer.spans}
+            assert {by_id[s.parent].name for s in scans} == {"dispatch"}
+            assert result.timings["junction_scan"] > 0
+    assert rows["igh"] > rows["igk"] > 1

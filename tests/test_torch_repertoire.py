@@ -38,6 +38,7 @@ from linearham_tpu_torch.utils.synth import (make_family, make_light_family,
                                              make_tree_samples,
                                              write_repertoire_inputs)
 from test_torch_pipeline import _make_tsv
+from test_torch_profiling import junction_rows
 
 torch.set_num_threads(1)
 
@@ -49,7 +50,8 @@ SPECS = [  # tests/test_repertoire.py's four families: three buckets
     ("phylo_hmm_input.yaml", "hmm_params", 13),
     ("phylo_hmm_input_igk.yaml", "igk_hmm_params", 14),
 ]
-STAGES = {"stack_families", "device_transfer", "device_step", "decode"}
+STAGES = {"stack_families", "device_transfer", "device_step", "decode",
+          "junction_scan"}
 
 
 def _host_of(jax_hmm) -> dict:
@@ -332,7 +334,9 @@ def test_cli_repertoire_on_the_synthetic_writer(tmp_path):
                    for ln in proc.stderr.splitlines()
                    if ln.startswith("# counters: ")]
     assert counters == {"gene_map_parses": 1, "gene_map_shared": 2,
-                        "chunks": 1}
+                        "chunks": 1, "junction_rows": sum(
+                            junction_rows(f.yaml_path, 0, f.gene_dir)
+                            for f in igh.families)}
     (trace,) = trace_dir.glob("repertoire.*.trace.json")
     names = {e.get("name") for e in json.loads(trace.read_text())[
         "traceEvents"]}
@@ -390,11 +394,14 @@ def test_cli_repertoire_parses_the_shared_gene_dir_once(tmp_path, capsys,
         return counters, [(outdir / f"f{i}.tsv").read_bytes()
                           for i in range(len(rows))]
 
+    scanned = sum(junction_rows(f.yaml_path, 0, f.gene_dir)
+                  for f in igh.families)
     cold, shared = call("cold", "fc")
     assert cold == {"cache_misses": 4, "gene_map_parses": 1,
-                    "gene_map_shared": 3, "chunks": 1}
+                    "gene_map_shared": 3, "chunks": 1,
+                    "junction_rows": scanned}
     warm, again = call("warm", "fc")
-    assert warm == {"cache_hits": 4, "chunks": 1}
+    assert warm == {"cache_hits": 4, "chunks": 1, "junction_rows": scanned}
     assert again == shared
 
     lone = family_cache.load_host_products
@@ -402,7 +409,8 @@ def test_cli_repertoire_parses_the_shared_gene_dir_once(tmp_path, capsys,
         family_cache, "load_host_products",
         lambda y, ci, d, gene_maps=None: lone(y, ci, d))
     each, alone = call("alone", "fc_alone")
-    assert each == {"cache_misses": 4, "gene_map_parses": 4, "chunks": 1}
+    assert each == {"cache_misses": 4, "gene_map_parses": 4, "chunks": 1,
+                    "junction_rows": scanned}
     assert alone == shared
     assert all(b.count(b"\n") > 1 for b in shared)
 

@@ -21,8 +21,8 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
-import yaml
 
+from linearham_tpu_torch.io.yaml_load import load_yaml
 from linearham_tpu_torch.utils.constants import EPS
 
 _GENE_FILE_RE = re.compile(r"^(IG([HKL])([VDJ]).*_star_.*)\.yaml$")
@@ -244,7 +244,7 @@ def _parse_npadding(root: dict, gg: GermlineGene) -> None:
 def load_gene(path: str, gtype: str) -> GermlineGene:
     """Load one germline gene YAML as a GermlineGene of the given type."""
     with open(path) as fh:
-        root = yaml.safe_load(fh)
+        root = load_yaml(fh)
     gg = _parse_core(root)
     gg.gtype = gtype
     if gtype in ("D", "J"):

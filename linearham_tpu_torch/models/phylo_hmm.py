@@ -236,7 +236,9 @@ def load_host_products(yaml_path: str, cluster_ind: int,
     Spans (``utils.profiling``): load_cluster, load_gene_map (a parse only),
     compile (state space, transitions, xMSA, emission maps; ``state_space``
     inside it).  Counters: gene_map_parses, gene_map_shared (a map taken
-    from ``gene_maps``), light_chain_families."""
+    from ``gene_maps``), light_chain_families, and ``io.yaml_load``'s
+    yaml_libyaml_loads (or yaml_python_loads): the partis file, and each
+    gene file of a parse."""
     with profiling.span("load_cluster"):
         cluster = load_cluster(yaml_path, cluster_ind)
     genes = None if gene_maps is None else gene_maps.get(hmm_param_dir)

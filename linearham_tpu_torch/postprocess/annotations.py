@@ -25,6 +25,7 @@ from typing import List, Optional
 import yaml
 
 from linearham_tpu_torch.io.annotated_newick import parse_annotated_newick
+from linearham_tpu_torch.io.yaml_load import load_yaml
 
 ANNOTATION_KEYS = [
     "NaiveSequence", "VGene", "V5pDel", "V3pDel", "VFwkInsertion",
@@ -198,7 +199,7 @@ def write_lh_annotations(
 
     n = len(rows)
     with open(partis_yaml_path) as fh:
-        partis_root = yaml.safe_load(fh)
+        partis_root = load_yaml(fh)
     base_event = partis_root["events"][0]
 
     member_seqs = []

@@ -15,6 +15,7 @@ from typing import Optional
 
 import yaml
 
+from linearham_tpu_torch.io.yaml_load import load_yaml
 from linearham_tpu_torch.utils.seqs import write_fasta
 
 
@@ -66,7 +67,7 @@ def parse_cluster(
 ) -> dict:
     """Write the cluster YAML + FASTA; returns the selected event."""
     with open(partis_yaml_path) as fh:
-        root = yaml.safe_load(fh)
+        root = load_yaml(fh)
     event = _select_event(root, partition_index, cluster_index,
                           seed_unique_id)
 

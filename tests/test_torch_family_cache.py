@@ -26,6 +26,7 @@ from linearham_tpu_torch.compiler.family_cache import (cached_phylo_hmm,
 from linearham_tpu_torch.io.germline import load_gene_map
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM, load_host_products
 from linearham_tpu_torch.utils import profiling
+from test_torch_profiling import YAML_LOADS
 
 torch.set_num_threads(1)
 
@@ -204,7 +205,9 @@ def test_shared_gene_map_builds_what_a_lone_build_does(fixtures_dir,
     with profiling.recording() as timer:
         load_host_products(first, 0, gene_dir, gene_maps)
         shared = load_host_products(second, 0, gene_dir, gene_maps)
-    assert timer.counters == {"gene_map_parses": 1, "gene_map_shared": 1}
+    # The directory's 6 gene files once, and each family's partis file.
+    assert timer.counters == {"gene_map_parses": 1, "gene_map_shared": 1,
+                              YAML_LOADS: 6 + 2}
     assert shared["genes"] is gene_maps[gene_dir]
     assert pickle.dumps(shared) == pickle.dumps(
         load_host_products(second, 0, gene_dir))
@@ -215,7 +218,8 @@ def test_shared_gene_map_builds_what_a_lone_build_does(fixtures_dir,
     with profiling.recording() as timer:
         miss = cached_phylo_hmm(second, 0, gene_dir, device="cpu",
                                 cache_dir=str(with_map), gene_maps=gene_maps)
-    assert timer.counters == {"cache_misses": 1, "gene_map_shared": 1}
+    assert timer.counters == {"cache_misses": 1, "gene_map_shared": 1,
+                              YAML_LOADS: 1}
     (entry,) = os.listdir(with_map)
     assert os.listdir(alone) == [entry] == [
         family_key(second, 0, gene_dir, "float64") + ".pkl"]

@@ -22,6 +22,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from linearham_tpu.io.schedule import PruningSchedule
 from linearham_tpu.io.trees_tsv import load_tree_samples
@@ -38,7 +39,7 @@ from linearham_tpu_torch.utils.synth import (make_family, make_light_family,
                                              make_tree_samples,
                                              write_repertoire_inputs)
 from test_torch_pipeline import _make_tsv
-from test_torch_profiling import junction_rows
+from test_torch_profiling import YAML_LOADS, junction_rows
 
 torch.set_num_threads(1)
 
@@ -333,8 +334,10 @@ def test_cli_repertoire_on_the_synthetic_writer(tmp_path):
     (counters,) = [json.loads(ln[len("# counters: "):])
                    for ln in proc.stderr.splitlines()
                    if ln.startswith("# counters: ")]
+    # 8 gene files once, and the 3 families' partis files.
     assert counters == {"gene_map_parses": 1, "gene_map_shared": 2,
-                        "chunks": 1, "junction_rows": sum(
+                        YAML_LOADS: 8 + 3, "chunks": 1,
+                        "junction_rows": sum(
                             junction_rows(f.yaml_path, 0, f.gene_dir)
                             for f in igh.families)}
     (trace,) = trace_dir.glob("repertoire.*.trace.json")
@@ -366,6 +369,19 @@ def _repertoire_counters(manifest, gene_dir, capsys) -> dict:
     return json.loads(line[len("# counters: "):])
 
 
+def _repertoire_call(rep, outdir, capsys):
+    """``cli repertoire --profile`` over ``rep``'s families, writing into
+    ``outdir``: the counters and each family's TSV bytes."""
+    outdir.mkdir()
+    outs = [outdir / f"f{i}.tsv" for i in range(len(rep.families))]
+    manifest = outdir / "manifest.tsv"
+    manifest.write_text("".join(
+        f"{f.yaml_path}\t0\t{f.trees_path}\t{out}\n"
+        for f, out in zip(rep.families, outs)))
+    counters = _repertoire_counters(str(manifest), rep.gene_dir, capsys)
+    return counters, [out.read_bytes() for out in outs]
+
+
 def test_cli_repertoire_parses_the_shared_gene_dir_once(tmp_path, capsys,
                                                         monkeypatch):
     """A cold call over four families of one germline directory parses it
@@ -378,27 +394,18 @@ def test_cli_repertoire_parses_the_shared_gene_dir_once(tmp_path, capsys,
         str(tmp_path / "in"), [("igh", 3, 4, 0.02), ("igh", 5, 3, 0.05),
                                ("igh", 4, 5, 0.08), ("igh", 6, 2, 0.03)]
     ).values()
-    rows = [ln.split("\t") for ln in
-            pathlib.Path(igh.manifest).read_text().splitlines()]
-    assert len(rows) == 4
+    assert len(igh.families) == 4
 
     def call(name, cache):
-        outdir = tmp_path / name
-        outdir.mkdir()
-        manifest = outdir / "manifest.tsv"
-        manifest.write_text("".join(
-            f"{y}\t{ci}\t{t}\t{outdir / f'f{i}.tsv'}\n"
-            for i, (y, ci, t, _) in enumerate(rows)))
         monkeypatch.setenv("LINEARHAM_FAMILY_CACHE", str(tmp_path / cache))
-        counters = _repertoire_counters(str(manifest), igh.gene_dir, capsys)
-        return counters, [(outdir / f"f{i}.tsv").read_bytes()
-                          for i in range(len(rows))]
+        return _repertoire_call(igh, tmp_path / name, capsys)
 
     scanned = sum(junction_rows(f.yaml_path, 0, f.gene_dir)
                   for f in igh.families)
     cold, shared = call("cold", "fc")
+    # 8 gene files once, and the 4 families' partis files.
     assert cold == {"cache_misses": 4, "gene_map_parses": 1,
-                    "gene_map_shared": 3, "chunks": 1,
+                    "gene_map_shared": 3, YAML_LOADS: 8 + 4, "chunks": 1,
                     "junction_rows": scanned}
     warm, again = call("warm", "fc")
     assert warm == {"cache_hits": 4, "chunks": 1, "junction_rows": scanned}
@@ -409,10 +416,41 @@ def test_cli_repertoire_parses_the_shared_gene_dir_once(tmp_path, capsys,
         family_cache, "load_host_products",
         lambda y, ci, d, gene_maps=None: lone(y, ci, d))
     each, alone = call("alone", "fc_alone")
-    assert each == {"cache_misses": 4, "gene_map_parses": 4, "chunks": 1,
+    assert each == {"cache_misses": 4, "gene_map_parses": 4,
+                    YAML_LOADS: 4 * 8 + 4, "chunks": 1,
                     "junction_rows": scanned}
     assert alone == shared
     assert all(b.count(b"\n") > 1 for b in shared)
+
+
+@pytest.mark.parametrize("locus,n_gene_files", [("igh", 8), ("igk", 4)])
+def test_cli_repertoire_writes_the_same_bytes_under_either_loader(
+        locus, n_gene_files, tmp_path, capsys, monkeypatch):
+    """A cold call over three families reads the germline directory and
+    each partis file through libyaml, and writes TSVs byte-equal to those
+    of the same call through the pure-Python loader."""
+    from linearham_tpu_torch.io import yaml_load
+
+    if not yaml.__with_libyaml__:
+        pytest.skip("this PyYAML was built without libyaml")
+    (rep,) = write_repertoire_inputs(
+        str(tmp_path / "in"), [(locus, 3, 4, 0.02), (locus, 5, 3, 0.05),
+                               (locus, 4, 2, 0.08)]).values()
+    monkeypatch.setenv("LINEARHAM_FAMILY_CACHE", "off")
+
+    def call(name, loader):
+        with monkeypatch.context() as m:
+            m.setattr(yaml_load, "LOADER", loader)
+            return _repertoire_call(rep, tmp_path / name, capsys)
+
+    fast, fast_tsvs = call("libyaml", yaml.CSafeLoader)
+    slow, slow_tsvs = call("python", yaml.SafeLoader)
+    rest = {k: v for k, v in fast.items() if k != "yaml_libyaml_loads"}
+    assert rest["gene_map_parses"] == 1
+    assert fast == {**rest, "yaml_libyaml_loads": n_gene_files + 3}
+    assert slow == {**rest, "yaml_python_loads": n_gene_files + 3}
+    assert fast_tsvs == slow_tsvs
+    assert all(b.count(b"\n") > 1 for b in fast_tsvs)
 
 
 @pytest.mark.parametrize("manifest,message", [

@@ -365,28 +365,25 @@ def plain_f64_emissions(torch, yaml_path, gene_dir, samples):
     from linearham_tpu_torch.models.phylo_hmm import (
         PhyloHMM, naive_prior_correction, region_emissions)
     from linearham_tpu_torch.ops import pruning_cuda
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
+    from linearham_tpu_torch.tools import pruning_ab
 
     hmm64 = PhyloHMM(yaml_path, 0, gene_dir, device="cuda",
                      dtype=torch.float64)
-    sched, eig, rates = prepare_ensemble(hmm64, samples, BENCH["num_rates"])
-    s, eig_t, pi_t, rates_t = hmm64.ensemble_inputs(sched, eig, samples.pi,
-                                                    rates)
-    site_ll = pruning_cuda.site_log_likelihoods_plain(
-        eig_t, pi_t, rates_t, hmm64.xmsa_rows, s["sched_src"],
-        s["sched_penc"], s["sched_len"], s["sched_root"], sched.n_slots)
+    args = pruning_ab.ensemble_args(hmm64, samples, BENCH["num_rates"])
+    site_ll = pruning_cuda.site_log_likelihoods_plain(*args)
     return hmm64, region_emissions(
-        naive_prior_correction(site_ll, pi_t, hmm64.naive_bases),
+        naive_prior_correction(site_ll, args[1], hmm64.naive_bases),
         hmm64.consts, hmm64.heavy)
 
 
 def pipeline(torch, tmp):
     phase(4, "pipeline file to file")
     from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
+    from linearham_tpu_torch.models.step import (Prepared, stack_blocks,
+                                                 step_blocks)
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.ops.forward import forward
-    from linearham_tpu_torch.pipeline.run import (prepare_ensemble,
-                                                  run_pipeline)
+    from linearham_tpu_torch.pipeline.run import run_pipeline
     from linearham_tpu_torch.utils.synth import (load_tree_samples,
                                                  write_pipeline_inputs)
 
@@ -441,16 +438,11 @@ def pipeline(torch, tmp):
     hmm32 = PhyloHMM(yaml_path, 0, gene_dir, device="cuda",
                      dtype=torch.float32)
     first = load_tree_samples(trees_path)[:chunk]
-    sched, eig, rates = prepare_ensemble(hmm32, first, BENCH["num_rates"])
-    inputs = hmm32.ensemble_inputs(sched, eig, first.pi, rates)
+    inputs = stack_blocks([Prepared.of(hmm32, first, BENCH["num_rates"])]
+                          ).to_device(hmm32.device, hmm32.dtype)
     gen = torch.Generator(device="cuda")
-    step_ms = cuda_ms(torch, lambda: hmm32.step(*inputs, gen,
-                                                sched.n_slots), 5)
-    s, eig_t, pi_t, rates_t = inputs
-    prune_ms = cuda_ms(torch, lambda: pruning_cuda._launch(
-        eig_t, pi_t, rates_t, hmm32.xmsa_rows, s["sched_src"],
-        s["sched_penc"], s["sched_len"], s["sched_root"],
-        sched.n_slots), 10)
+    step_ms = cuda_ms(torch, lambda: step_blocks(inputs, [gen]), 5)
+    prune_ms = cuda_ms(torch, lambda: pruning_cuda._launch(*inputs.args), 10)
     print(f"device step at T={chunk}: {step_ms:.3f} ms, of which "
           f"pruning kernel {prune_ms:.3f} ms, emissions+forward+FFBS "
           f"{step_ms - prune_ms:.3f} ms (median, CUDA events)")
@@ -641,21 +633,21 @@ def warmup_and_serve(torch, tmp, files):
 def viterbi_through_kernel(torch, tmp, files):
     phase(7, "Viterbi (MAP) through the kernel")
     from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+    from linearham_tpu_torch.models.step import Prepared, launch, stack_blocks
     from linearham_tpu_torch.ops import pruning_cuda
     from linearham_tpu_torch.ops.forward import forward
     from linearham_tpu_torch.ops.viterbi import viterbi
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
     from linearham_tpu_torch.utils.synth import load_tree_samples
 
     chunk, n_ref, R = BENCH["chunk"], 512, BENCH["num_rates"]
     hmm = cached_phylo_hmm(files.yaml_path, 0, files.gene_dir,
                            device="cuda", dtype=torch.float32)
     first = load_tree_samples(files.trees_path)[:chunk]
-    sched, eig, rates = prepare_ensemble(hmm, first, R)
-    inputs = hmm.ensemble_inputs(sched, eig, first.pi, rates)
+    inputs = stack_blocks([Prepared.of(hmm, first, R)]).to_device(
+        hmm.device, hmm.dtype)
     torch.cuda.synchronize()
     pruning_cuda.launches = 0
-    score, path = hmm.map_step(*inputs, sched.n_slots)
+    score, path = hmm.map_step(launch(inputs), inputs.pi)
     torch.cuda.synchronize()
     step_launches = pruning_cuda.launches
     check(step_launches == 1, f"map step launched {step_launches} kernels")
@@ -675,7 +667,8 @@ def viterbi_through_kernel(torch, tmp, files):
     check(dmap <= F32_LOGLIK_BOUND, "f32 MAP score error too large")
     check(gap <= 1e-9, "a MAP score exceeds its tree's log-likelihood")
 
-    step_ms = cuda_ms(torch, lambda: hmm.map_step(*inputs, sched.n_slots), 5)
+    step_ms = cuda_ms(torch, lambda: hmm.map_step(launch(inputs), inputs.pi),
+                      5)
     print(f"MAP step at T={chunk}: {step_ms:.3f} ms (median of 5, CUDA "
           "events)")
 
@@ -787,27 +780,26 @@ def one_sequence_family(torch):
     """A one-sequence family (the smallest schedule: two tips), 4 trees,
     R = 4, through the kernel in f64 and f32, against the plain f64 path
     on the card.  Returns the kernel's launches."""
+    from linearham_tpu_torch.models.step import Prepared, launch, stack_blocks
     from linearham_tpu_torch.ops import pruning_cuda
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
     from linearham_tpu_torch.tools import pruning_ab
 
     lls, launches = {}, 0
     for dtype in (torch.float64, torch.float32):
         hmm, trees = pruning_ab.make_batch(4, dtype, n_seqs=1, seed=4)
-        sched, eig, rates = prepare_ensemble(hmm, trees, 4)
-        inputs = hmm.ensemble_inputs(sched, eig, trees.pi, rates)
+        inputs = stack_blocks([Prepared.of(hmm, trees, 4)]).to_device(
+            hmm.device, hmm.dtype)
         before = pruning_cuda.launches
-        lls[dtype] = hmm.step(*inputs, None, sched.n_slots)[0].double().cpu()
+        lls[dtype] = hmm.step_from_site_ll(
+            launch(inputs), inputs.pi, None)[0].double().cpu()
         launches += pruning_cuda.launches - before
         if dtype == torch.float64:
-            s, eig_t, pi_t, rates_t = inputs
             plain = hmm.step_from_site_ll(
-                pruning_cuda.site_log_likelihoods_plain(
-                    eig_t, pi_t, rates_t, hmm.xmsa_rows, s["sched_src"],
-                    s["sched_penc"], s["sched_len"], s["sched_root"],
-                    sched.n_slots), pi_t, None)[0].cpu()
+                pruning_cuda.site_log_likelihoods_plain(*inputs.args),
+                inputs.pi, None)[0].cpu()
     d64 = float((lls[torch.float64] - plain).abs().max())
     d32 = float((lls[torch.float32] - plain).abs().max())
+    sched = inputs.stacked.sched
     print(f"one-sequence family (N = {sched.src.shape[1]}, {sched.n_slots} "
           f"slots), 4 trees: plain f64 {plain.tolist()}; kernel f64 max|d| "
           f"{d64:.3e} (bound {F64_LOGLIK_BOUND}), f32 {d32:.3e} (bound "
@@ -878,6 +870,7 @@ def repertoire(torch, tmp, files):
                                                          run_repertoire)
     from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
     from linearham_tpu_torch.tools import pruning_ab
+    from linearham_tpu_torch.utils import profiling
     from linearham_tpu_torch.utils.synth import (load_tree_samples,
                                                  write_repertoire_inputs)
 
@@ -938,13 +931,14 @@ def repertoire(torch, tmp, files):
                                      dtype=torch.float32),
                 samples=load_tree_samples(fam_files.trees_path)))
     n_trees = sum(t.samples.n_samples for t in tasks)
-    timings = {}
     torch.cuda.synchronize()
     pruning_cuda.launches = 0
     t0 = time.perf_counter()
-    results = run_repertoire(tasks, num_rates=4, seed=0, device="cuda",
-                             dtype=torch.float32, timings=timings)
+    with profiling.recording() as timer:
+        results = run_repertoire(tasks, num_rates=4, seed=0, device="cuda",
+                                 dtype=torch.float32)
     wall = time.perf_counter() - t0
+    timings = timer.as_dict()
     launches = pruning_cuda.launches
     check(launches == 2, f"run_repertoire launched {launches} kernels, "
                          "want 2 (one per bucket)")
@@ -1089,16 +1083,21 @@ def share_site_ll_matches(torch, mesh, buckets, dtype):
     each bucket is bitwise equal to the same tree's row of one launch over
     the whole bucket (``buckets``: lists of whole-family blocks; 4 rates,
     run_repertoire's default)."""
-    from linearham_tpu_torch.parallel.mesh import (shard_family_batch,
-                                                   stacked_site_ll)
+    from linearham_tpu_torch.models.step import Prepared, launch, stack_blocks
+    from linearham_tpu_torch.parallel.mesh import shard_family_batch
+
+    def site_ll(blocks):
+        inputs = stack_blocks([Prepared.of(b.task.hmm, b.task.samples[b.trees],
+                                           4) for b in blocks]).to_device(
+            mesh.device, dtype)
+        return launch(inputs), inputs.stacked
 
     for blocks in buckets:
         share = shard_family_batch(mesh, blocks)
         if not share:
             continue
-        whole, st_whole, *_ = stacked_site_ll(blocks, 4, mesh.device,
-                                              dtype)
-        part, st_part, *_ = stacked_site_ll(share, 4, mesh.device, dtype)
+        whole, st_whole = site_ll(blocks)
+        part, st_part = site_ll(share)
         at = {b.index: f for f, b in enumerate(blocks)}
         for f, b in enumerate(share):
             start = st_whole.trees(at[b.index]).start
@@ -1128,6 +1127,7 @@ def mesh_repertoire_rank(devices, payload):
     from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
                                                          buckets_of,
                                                          run_repertoire)
+    from linearham_tpu_torch.utils import profiling
     from linearham_tpu_torch.utils.synth import load_tree_samples
 
     device = devices[dist.get_rank()]
@@ -1151,12 +1151,13 @@ def mesh_repertoire_rank(devices, payload):
             torch.cuda.synchronize(device)
             dist.barrier()
             pruning_cuda.launches = 0
-            timings = {}
             t0 = time.perf_counter()
-            results = run_repertoire(tasks, seed=0, mesh=mesh, dtype=dtype,
-                                     timings=timings)
+            with profiling.recording() as timer:
+                results = run_repertoire(tasks, seed=0, mesh=mesh,
+                                         dtype=dtype)
             torch.cuda.synchronize(device)
             wall, launches = time.perf_counter() - t0, pruning_cuda.launches
+            timings = timer.as_dict()
             out.append({
                 "dtype": str(dtype).removeprefix("torch."), "shape": shape,
                 "wall": wall, "gather_s": timings.get("gather", 0.0),
@@ -1185,6 +1186,7 @@ def mesh_on_the_card(torch, rep):
                                                      free_port, launch_ranks)
     from linearham_tpu_torch.parallel.mesh import make_mesh
     from linearham_tpu_torch.parallel.repertoire import run_repertoire
+    from linearham_tpu_torch.utils import profiling
 
     tasks, want = rep["tasks"], rep["results"]
     want_naive = [naive_digest(r) for r in want]
@@ -1204,13 +1206,14 @@ def mesh_on_the_card(torch, rep):
         setup = time.perf_counter() - t0
         torch.cuda.synchronize()
         pruning_cuda.launches = 0
-        timings = {}
         t0 = time.perf_counter()
-        got = run_repertoire(tasks, seed=0, mesh=mesh, dtype=torch.float32,
-                             timings=timings)
+        with profiling.recording() as timer:
+            got = run_repertoire(tasks, seed=0, mesh=mesh,
+                                 dtype=torch.float32)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         in_process = pruning_cuda.launches
+        timings = timer.as_dict()
     finally:
         dist.destroy_process_group()
     dll = max_dll([r.loglik for r in got])

@@ -5,8 +5,10 @@ Felsenstein likelihoods over the xMSA conditional on the hidden naive base,
 divided by the naive base's stationary probability (the HMM supplies the
 naive prior; reference: src/PhyloHMM.cpp:220-238).  A whole batch of
 posterior trees runs as one device step: pruning (the hand-written kernel
-on CUDA), the naive-prior correction, the region-emission matmuls, then
-forward and FFBS (``phylo_step``) or Viterbi (``phylo_map_step``).
+on CUDA, launched through ``models.step``, the one route of every tree
+batch), then the naive-prior correction, the region-emission matmuls, and
+forward and FFBS (``phylo_step_from_site_ll``) or Viterbi
+(``phylo_map_step``).
 
 ``PhyloHMM`` is an ``nn.Module`` whose buffers are the family-constant
 tensors (transitions, emission maps, xMSA rows), placed once on its device
@@ -31,18 +33,15 @@ from linearham_tpu_torch.io.newick import TreeBatch, batch_trees, parse_newick
 from linearham_tpu_torch.io.partis import ClusterData, load_cluster
 from linearham_tpu_torch.io.schedule import PruningSchedule, build_schedule
 from linearham_tpu_torch.models.decode import Annotation, decode_paths_batch
+from linearham_tpu_torch.models.step import Prepared, launch, stack_blocks
 from linearham_tpu_torch.ops.ffbs import (SampledPath, path_to_numpy,
                                           sample_path)
 from linearham_tpu_torch.ops.forward import ForwardCache, forward, widen_cache
-from linearham_tpu_torch.ops.gtr import (GTREigen, gamma_category_rates,
-                                         gtr_eigen)
-from linearham_tpu_torch.ops.pruning_cuda import (check_schedule,
-                                                  site_log_likelihoods)
+from linearham_tpu_torch.ops.gtr import gamma_category_rates, gtr_eigen
 from linearham_tpu_torch.ops.viterbi import viterbi
 from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.runtime import (full_f32_matmuls,
-                                               resolve_device, resolve_dtype,
-                                               to_device)
+                                               resolve_device, resolve_dtype)
 
 # Stand-in for -inf while emissions flow through matmuls (0 * -inf = NaN
 # would poison the one-hot contractions); exp(_NEG_CAP - anything) == 0 in
@@ -138,42 +137,12 @@ def naive_prior_correction(site_ll: torch.Tensor, pi: torch.Tensor,
                                  torch.zeros_like(log_pi))
 
 
-def phylo_emissions(consts, xmsa_rows, naive_bases, sched: dict,
-                    eig: GTREigen, pi, rates, heavy: bool, n_slots: int):
-    """Pruning + naive-prior correction + region emissions.
-
-    Returns (emission dict for the forward pass, corrected site log-liks
-    [T, X]).
-    """
-    site_ll = site_log_likelihoods(
-        eig, pi, rates, xmsa_rows, sched["sched_src"], sched["sched_penc"],
-        sched["sched_len"], sched["sched_root"], n_slots)
-    site_ll_corr = naive_prior_correction(site_ll, pi, naive_bases)
-    return region_emissions(site_ll_corr, consts, heavy), site_ll_corr
-
-
-def phylo_step(trans, consts, xmsa_rows, naive_bases, sched: dict,
-               eig: GTREigen, pi, rates,
-               generator: Optional[torch.Generator], heavy: bool,
-               n_slots: int):
-    """One pipeline step over a tree batch: one pruning launch, then
-    ``phylo_step_from_site_ll``.
-
-    Returns (loglik [T], xmsa emission [T, X], sampled path or None).
-    """
-    site_ll = site_log_likelihoods(
-        eig, pi, rates, xmsa_rows, sched["sched_src"], sched["sched_penc"],
-        sched["sched_len"], sched["sched_root"], n_slots)
-    return phylo_step_from_site_ll(trans, consts, naive_bases, site_ll, pi,
-                                   generator, heavy)
-
-
 def phylo_step_from_site_ll(trans, consts, naive_bases, site_ll, pi,
                             generator: Optional[torch.Generator],
                             heavy: bool):
     """The step after pruning: naive-prior correction, region emissions,
-    forward, then FFBS when a generator is given.  ``site_ll`` [T, X] may be
-    a slice of a larger launch's output (the repertoire path).
+    forward, then FFBS when a generator is given.  ``site_ll`` [T, X] is a
+    block's slice of a launch's output (``models.step.step_blocks``).
 
     Returns (loglik [T], xmsa emission [T, X], sampled path or None).
     """
@@ -185,12 +154,12 @@ def phylo_step_from_site_ll(trans, consts, naive_bases, site_ll, pi,
     return loglik, torch.exp(site_ll_corr), path
 
 
-def phylo_map_step(trans, consts, xmsa_rows, naive_bases, sched: dict,
-                   eig: GTREigen, pi, rates, heavy: bool, n_slots: int):
-    """Viterbi variant of phylo_step: (MAP joint log-prob [T], MAP path)."""
-    emis, _ = phylo_emissions(consts, xmsa_rows, naive_bases, sched, eig, pi,
-                              rates, heavy, n_slots)
-    return viterbi(trans, emis, heavy)
+def phylo_map_step(trans, consts, naive_bases, site_ll, pi, heavy: bool):
+    """Viterbi variant of phylo_step_from_site_ll: (MAP joint log-prob [T],
+    MAP path)."""
+    site_ll_corr = naive_prior_correction(site_ll, pi, naive_bases)
+    return viterbi(trans, region_emissions(site_ll_corr, consts, heavy),
+                   heavy)
 
 
 def host_products(cluster: ClusterData, genes, msa: np.ndarray) -> dict:
@@ -345,34 +314,6 @@ class PhyloHMM(nn.Module):
 
     # -- batched step ----------------------------------------------------
 
-    def ensemble_inputs(self, sched: PruningSchedule, eig: GTREigen, pi,
-                        rates, idx=None, non_blocking: bool = False):
-        """Host arrays of a tree batch (rows ``idx``, default all) -> device
-        tensors: (schedule dict, eig, pi, rates).  Indices are checked on
-        the host before they reach the kernel."""
-        if idx is None:
-            idx = np.arange(sched.n_trees)
-        part = PruningSchedule(src=sched.src[idx], penc=sched.penc[idx],
-                               length=sched.length[idx],
-                               root=sched.root[idx], n_slots=sched.n_slots)
-        check_schedule(part, self.xmsa.matrix.shape[0])
-
-        def put(a):
-            return to_device(a, self.device, self.dtype, non_blocking)
-
-        sched_t = {"sched_src": put(part.src), "sched_penc": put(part.penc),
-                   "sched_len": put(part.length), "sched_root": put(part.root)}
-        eig_t = GTREigen(*(put(np.asarray(a)[idx]) for a in eig))
-        return sched_t, eig_t, put(np.asarray(pi)[idx]), \
-            put(np.asarray(rates)[idx])
-
-    def step(self, sched_t: dict, eig_t: GTREigen, pi_t, rates_t,
-             generator: Optional[torch.Generator], n_slots: int):
-        """phylo_step with this family's constants."""
-        return phylo_step(self.trans, self.consts, self.xmsa_rows,
-                          self.naive_bases, sched_t, eig_t, pi_t, rates_t,
-                          generator, self.heavy, n_slots)
-
     def step_from_site_ll(self, site_ll, pi_t,
                           generator: Optional[torch.Generator]):
         """phylo_step_from_site_ll with this family's constants."""
@@ -380,12 +321,10 @@ class PhyloHMM(nn.Module):
                                        self.naive_bases, site_ll, pi_t,
                                        generator, self.heavy)
 
-    def map_step(self, sched_t: dict, eig_t: GTREigen, pi_t, rates_t,
-                 n_slots: int):
+    def map_step(self, site_ll, pi_t):
         """phylo_map_step with this family's constants."""
-        return phylo_map_step(self.trans, self.consts, self.xmsa_rows,
-                              self.naive_bases, sched_t, eig_t, pi_t,
-                              rates_t, self.heavy, n_slots)
+        return phylo_map_step(self.trans, self.consts, self.naive_bases,
+                              site_ll, pi_t, self.heavy)
 
     # -- single-tree API (mirrors the reference CLI subcommands) ----------
 
@@ -405,19 +344,22 @@ class PhyloHMM(nn.Module):
         self._loglik = None
         self._xmsa_emission = None
 
-    def _tree_inputs(self):
+    def _launch_current(self):
+        """The current tree through the one launch route (``models.step``):
+        (site log-likelihoods [1, X], pi [1, 4]) on this model's device."""
         p = self.params
-        return self.ensemble_inputs(self._schedule, gtr_eigen([p.er], [p.pi]),
-                                    [p.pi], p.rates[None])
+        inputs = stack_blocks([Prepared(
+            self, self._schedule, gtr_eigen([p.er], [p.pi]), p.rates[None],
+            np.asarray([p.pi]))]).to_device(self.device, self.dtype)
+        return launch(inputs), inputs.pi
 
     def _forward_current(self) -> ForwardCache:
         """Emissions + forward for the current tree; caches the
         log-likelihood and xMSA emission on the host."""
-        sched, eig, pi, rates = self._tree_inputs()
-        emis, site_ll_corr = phylo_emissions(
-            self.consts, self.xmsa_rows, self.naive_bases, sched, eig, pi,
-            rates, self.heavy, self._schedule.n_slots)
-        loglik, cache = forward(self.trans, emis, self.heavy)
+        site_ll, pi = self._launch_current()
+        site_ll_corr = naive_prior_correction(site_ll, pi, self.naive_bases)
+        loglik, cache = forward(self.trans, region_emissions(
+            site_ll_corr, self.consts, self.heavy), self.heavy)
         self._loglik = loglik.cpu().numpy()
         self._xmsa_emission = torch.exp(site_ll_corr).cpu().numpy()
         return cache
@@ -452,9 +394,7 @@ class PhyloHMM(nn.Module):
     def map_annotation(self) -> Annotation:
         """The MAP (Viterbi) V(D)J annotation under the current tree; its
         joint log-probability is left in ``self.map_score``."""
-        sched, eig, pi, rates = self._tree_inputs()
-        score, path = self.map_step(sched, eig, pi, rates,
-                                    self._schedule.n_slots)
+        score, path = self.map_step(*self._launch_current())
         self.map_score = float(score[0])
         return self.decode_batch(path_to_numpy(path))[0]
 

@@ -18,12 +18,12 @@ tree chunking, the R=1 category duplication (a Mosaic broadcast limit) and
 site/tree padding -- the CUDA grid covers exactly T trees and masks the
 ragged site edge.
 
-``stack_schedules`` turns several families' schedules and xMSA row tables
-into the inputs of ONE launch (the repertoire path): the row tables are
-stacked into one code table, each family's tip entries are offset to its
-rows, and the families' trees are concatenated along T.  The kernel's
-interface is unchanged: it already reads one shared row table and per-tree
-tip row indices.
+``stack_schedules`` turns families' schedules and xMSA row tables into the
+inputs of ONE launch (``models.step``, the route of every launch): the row
+tables are stacked into one code table, each family's tip entries are
+offset to its rows, and the families' trees are concatenated along T.  The
+kernel's interface is unchanged: it already reads one shared row table and
+per-tree tip row indices.
 """
 
 from __future__ import annotations
@@ -93,14 +93,15 @@ def check_schedule(sched: PruningSchedule, n_rows: int) -> None:
 
 @dataclass
 class StackedSchedule:
-    """Several families' pruning inputs as one launch's (``stack_schedules``).
+    """Families' pruning inputs as one launch's (``stack_schedules``).
 
     Family ``f`` owns trees ``tree_offsets[f]:tree_offsets[f+1]`` of
     ``sched`` and rows ``row_offsets[f]:row_offsets[f+1]`` of ``codes``; its
     real sites are the first ``n_cols[f]`` columns of the output.
     """
 
-    codes: np.ndarray            # [sum_f n_rows_f + 1, X_max] int32
+    codes: np.ndarray            # [sum_f n_rows_f + 1, X_max] int32;
+    #                              one family: its own [n_rows, X]
     sched: PruningSchedule       # [sum_f T_f, N_max], bucket n_slots
     tree_offsets: np.ndarray     # [F + 1]
     row_offsets: np.ndarray      # [F + 1]
@@ -112,7 +113,8 @@ class StackedSchedule:
 
 def stack_schedules(scheds: Sequence[PruningSchedule],
                     row_tables: Sequence[np.ndarray]) -> StackedSchedule:
-    """Stack families' schedules and xMSA row tables for one launch.
+    """Stack one or more families' schedules and xMSA row tables for one
+    launch.
 
     * Rows: one table [sum_f n_rows_f + 1, X_max]; a family's columns past
       its own X_f, and the last row, hold code 4 (N, a message of ones).
@@ -126,12 +128,22 @@ def stack_schedules(scheds: Sequence[PruningSchedule],
       row: the message is exactly ones, its renormalisation adds log 1 = 0,
       and real sites come out as in a launch of the family alone.
     * ``src`` stays int32: offsets pass 32,767 rows in a large repertoire.
+    * One family comes back as it is, its own rows and schedule: nothing
+      pads it, so it needs no all-N row.
 
     Every index is checked against the stacked table before it can reach
     the kernel.
     """
     if not scheds or len(scheds) != len(row_tables):
         raise ValueError("stack_schedules needs one row table per schedule")
+    if len(scheds) == 1:
+        (s,), (rows,) = scheds, row_tables
+        rows = np.asarray(rows, np.int32)
+        check_schedule(s, rows.shape[0])
+        return StackedSchedule(codes=rows, sched=s,
+                               tree_offsets=np.array([0, s.n_trees]),
+                               row_offsets=np.array([0, rows.shape[0]]),
+                               n_cols=[rows.shape[1]])
     n_entries = max(s.n_entries for s in scheds)
     n_slots = max(s.n_slots for s in scheds)
     pad = (n_slots - 1) * 4 + 2 + 1

@@ -19,10 +19,10 @@ the group.
 What differs from the JAX module, and why:
 
 * ``multi_family_step`` is one stacked kernel launch over ragged blocks
-  (``ops.pruning_cuda.stack_schedules``), then each block's own
-  post-pruning step at its own shapes, where the JAX package vmaps one
-  padded step.  So ``shard_family_batch`` cuts blocks instead of padding
-  families and trees up to multiples of the mesh (JAX
+  (``models.step``, through ``ops.pruning_cuda.stack_schedules``), then
+  each block's own post-pruning step at its own shapes, where the JAX
+  package vmaps one padded step.  So ``shard_family_batch`` cuts blocks
+  instead of padding families and trees up to multiples of the mesh (JAX
   ``parallel/repertoire.py:303-324``); a rank whose share is empty
   launches nothing but joins every collective.
 * Random draws: each block samples from its own ``torch.Generator``, seeded
@@ -46,13 +46,9 @@ import torch
 import torch.distributed as dist
 
 from linearham_tpu_torch.models.decode import Annotation
+from linearham_tpu_torch.models.step import Prepared, stack_blocks, step_blocks
 from linearham_tpu_torch.ops.ffbs import path_to_numpy
-from linearham_tpu_torch.ops.gtr import GTREigen
-from linearham_tpu_torch.ops.pruning_cuda import (site_log_likelihoods,
-                                                  stack_schedules)
-from linearham_tpu_torch.pipeline.run import _to_host, prepare_ensemble
 from linearham_tpu_torch.utils import profiling
-from linearham_tpu_torch.utils.runtime import to_device
 
 AXIS_NAMES = ("fam", "trees")
 # Every process group of a mesh waits at most this long in a collective: a
@@ -200,77 +196,35 @@ def block_generator(seed: int, block: FamilyBlock,
     return gen
 
 
-def stacked_site_ll(blocks: Sequence[FamilyBlock], num_rates: int,
-                    device: torch.device, dtype: torch.dtype):
-    """ONE pruning launch over every block's trees.
-
-    Returns (site log-likelihoods [sum_b T_b, X_max] on ``device``, the
-    ``StackedSchedule`` that says which rows and columns are block b's, pi
-    [sum_b T_b, 4] on ``device``, and on the card a chunk_device
-    ``profiling.CudaSpan`` begun before the first host-to-device copy, else
-    None).  Spans (``utils.profiling``): stack_families, device_transfer,
-    device_step (the launch).
-    """
-    def put(a):
-        return to_device(a, device, dtype, non_blocking=True)
-
-    with profiling.span("stack_families"):
-        samples = [b.task.samples[b.trees] for b in blocks]
-        preps = [prepare_ensemble(b.task.hmm, s, num_rates)
-                 for b, s in zip(blocks, samples)]
-        stacked = stack_schedules(
-            [p[0] for p in preps],
-            [np.asarray(b.task.hmm.xmsa.matrix, np.int32) for b in blocks])
-        eig = GTREigen(*(np.concatenate(parts)
-                         for parts in zip(*(p[1] for p in preps))))
-        pi = np.concatenate([np.asarray(s.pi) for s in samples])
-        rates = np.concatenate([p[2] for p in preps])
-
-    span = profiling.cuda_span("chunk_device", device)
-    with profiling.span("device_transfer"):
-        s = stacked.sched
-        codes_t, src_t, penc_t, len_t, root_t = (
-            put(a) for a in (stacked.codes, s.src, s.penc, s.length, s.root))
-        eig_t = GTREigen(*(put(a) for a in eig))
-        pi_t, rates_t = put(pi), put(rates)
-
-    with profiling.span("device_step"):
-        site_ll = site_log_likelihoods(
-            eig_t, pi_t, rates_t, codes_t, src_t, penc_t, len_t, root_t,
-            s.n_slots)
-    return site_ll, stacked, pi_t, span
-
-
 def multi_family_step(blocks: Sequence[FamilyBlock], num_rates: int,
                       seed: int, device: torch.device,
                       dtype: torch.dtype) -> list:
-    """ONE pruning launch over every block's trees (``stacked_site_ll``),
-    then each block's post-pruning step (naive prior, region emissions,
-    forward, FFBS) on its slice ``site_ll[trees_b, :X_b]``.
+    """ONE pruning launch over every block's trees, then each block's
+    post-pruning step (naive prior, region emissions, forward, FFBS from
+    ``block_generator``) on its slice ``site_ll[trees_b, :X_b]``, through
+    ``models.step``.
 
     Returns, per block, (log-likelihoods [n_trees] float64, sampled path
-    with numpy leaves).  Spans: stack_families, device_transfer,
-    device_step, and on the card chunk_device (CUDA events from before the
-    first host-to-device copy to the last result's landing).  Counter:
-    chunks.
+    with numpy leaves).  Spans: stack_families (host prep and stacking),
+    device_transfer, device_step (the launch and the blocks' steps, until
+    their results landed), and on the card chunk_device (CUDA events from
+    before the first host-to-device copy to the last result's landing).
+    Counter: chunks.
     """
-    site_ll, stacked, pi_t, span = stacked_site_ll(blocks, num_rates,
-                                                   device, dtype)
+    with profiling.span("stack_families"):
+        host = stack_blocks([Prepared.of(b.task.hmm, b.task.samples[b.trees],
+                                         num_rates) for b in blocks])
+    span = profiling.cuda_span("chunk_device", device)
+    with profiling.span("device_transfer"):
+        inputs = host.to_device(device, dtype)
     with profiling.span("device_step"):
-        host = []
-        for f, b in enumerate(blocks):
-            rows = stacked.trees(f)
-            loglik, _, path = b.task.hmm.step_from_site_ll(
-                site_ll[rows, :stacked.n_cols[f]], pi_t[rows],
-                block_generator(seed, b, device))
-            # The last block's copies end the bucket's device span.
-            host.append(_to_host(loglik, path,
-                                 span if f == len(blocks) - 1 else None))
-        for _, _, done in host:
+        results = step_blocks(
+            inputs, [block_generator(seed, b, device) for b in blocks], span)
+        for _, _, done in results:
             done()
     profiling.count("chunks")
     return [(loglik_h.numpy().astype(np.float64), path_to_numpy(path_h))
-            for loglik_h, path_h, _ in host]
+            for loglik_h, path_h, _ in results]
 
 
 def sharded_pipeline(mesh: FamilyMesh, blocks: Sequence[FamilyBlock],

@@ -4,7 +4,8 @@ bucket.
 Counterpart of linearham_tpu/parallel/repertoire.py.  Families are bucketed
 by their junction-window row counts (``_bucket_key``: the chain and the VD /
 DJ junction rows, the same key as the JAX package).  Each bucket runs
-through ``parallel.mesh.sharded_pipeline``, whose stages are:
+through ``parallel.mesh.sharded_pipeline``, whose stages (the route of
+``models.step``) are:
 
   stack_families   host prep of every family (``prepare_ensemble``), then
                    ``ops.pruning_cuda.stack_schedules``: one code table of
@@ -14,7 +15,8 @@ through ``parallel.mesh.sharded_pipeline``, whose stages are:
   device_step      ONE pruning launch over all the bucket's trees, then each
                    family's own post-pruning step (naive prior, region
                    emissions, forward, FFBS) on its slice
-                   ``site_ll[trees_f, :X_f]`` with its own buffers
+                   ``site_ll[trees_f, :X_f]`` with its own buffers, until
+                   the results landed
   decode           host path decode per family (and, on a mesh, the
                    gather of every rank's share)
 
@@ -57,7 +59,6 @@ from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch
 from linearham_tpu_torch.parallel.mesh import (FamilyBlock, FamilyMesh,
                                                local_mesh, sharded_pipeline)
 from linearham_tpu_torch.pipeline.run import write_tsv_header, write_tsv_rows
-from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.fileio import atomic_write
 from linearham_tpu_torch.utils.runtime import resolve_device, resolve_dtype
 
@@ -100,7 +101,6 @@ def run_repertoire(
     seed: int = 0,
     device=None,
     dtype=None,
-    timings: Optional[dict] = None,
     mesh: Optional[FamilyMesh] = None,
 ) -> List[FamilyResult]:
     """Run many families' ensembles, one pruning launch per bucket (per
@@ -111,8 +111,7 @@ def run_repertoire(
     model must already lie on that device in that dtype.  ``mesh``
     (``parallel.mesh.make_mesh``): every rank passes the same ``tasks`` and
     gets every family's result.  Spans go to the request's recorder where
-    one is active (``utils.profiling``); ``timings`` (optional dict)
-    accumulates the seconds of this call's spans per name: stack_families,
+    one is active (``utils.profiling.recording``): stack_families,
     device_transfer, device_step, decode, and on the card chunk_device, on
     a mesh gather.  Results come back in the order of ``tasks``.
     """
@@ -131,21 +130,15 @@ def run_repertoire(
                 f"lies on {t.hmm.xmsa_rows.device} in {t.hmm.dtype}")
     mesh = mesh if mesh is not None else local_mesh(device)
     results: List[Optional[FamilyResult]] = [None] * len(tasks)
-    with profiling.recording() as timer:
-        first = len(timer.spans)
-        for idxs in buckets_of(tasks):
-            blocks = [FamilyBlock(i, tasks[i],
-                                  slice(0, tasks[i].samples.n_samples))
-                      for i in idxs]
-            done = sharded_pipeline(mesh, blocks, num_rates, seed, dtype)
-            for i, (loglik, anns) in zip(idxs, done):
-                results[i] = FamilyResult(
-                    loglik=loglik,
-                    logweight=loglik - tasks[i].samples.rb_loglik,
-                    annotations=anns)
-    if timings is not None:
-        for s in timer.spans[first:]:
-            timings[s.name] = timings.get(s.name, 0.0) + s.seconds
+    for idxs in buckets_of(tasks):
+        blocks = [FamilyBlock(i, tasks[i],
+                              slice(0, tasks[i].samples.n_samples))
+                  for i in idxs]
+        done = sharded_pipeline(mesh, blocks, num_rates, seed, dtype)
+        for i, (loglik, anns) in zip(idxs, done):
+            results[i] = FamilyResult(
+                loglik=loglik, logweight=loglik - tasks[i].samples.rb_loglik,
+                annotations=anns)
     return results
 
 

@@ -3,11 +3,12 @@
 Counterpart of linearham_tpu/pipeline/run.py.  The reference walks the
 RevBayes TSV one tree at a time (src/PhyloHMM.cpp:393-446); here the
 ensemble runs in chunks, each chunk ONE device step (pruning + emissions +
-forward + FFBS for every tree at once).  The main thread prepares chunk k's
-host inputs and enqueues its pinned, non-blocking copies and its step
-without waiting for the device; one drain thread waits for each chunk's
-results in order, decodes its annotations and streams its rows to the
-output TSV.
+forward + FFBS for every tree at once), a one-family launch through
+``models.step``, the route every tree batch takes.  The main thread
+prepares chunk k's host inputs and enqueues its pinned, non-blocking copies
+and its step without waiting for the device; one drain thread waits for
+each chunk's results in order, decodes its annotations and streams its rows
+to the output TSV.
 
 Output columns match the reference contract exactly
 (src/PhyloHMM.cpp:244-327).
@@ -27,13 +28,12 @@ import numpy as np
 import torch
 
 from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
-from linearham_tpu_torch.io.newick import batch_trees, parse_newick
-from linearham_tpu_torch.io.schedule import build_schedule
 from linearham_tpu_torch.io.trees_tsv import TreeSamples, load_tree_samples
 from linearham_tpu_torch.models.decode import Annotation
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
-from linearham_tpu_torch.ops.ffbs import SampledPath, path_to_numpy
-from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch, gtr_eigen
+from linearham_tpu_torch.models.step import Prepared, stack_blocks, step_blocks
+from linearham_tpu_torch.ops.ffbs import path_to_numpy
+from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch
 from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.fileio import atomic_write
 from linearham_tpu_torch.utils.runtime import resolve_dtype
@@ -52,44 +52,6 @@ class PipelineResult:
     annotations: List[Annotation]
     timings: Optional[dict] = None   # span name -> seconds
     counters: Optional[dict] = None  # counter name -> count
-
-
-def prepare_ensemble(hmm: PhyloHMM, samples: TreeSamples, num_rates: int,
-                     rates: Optional[np.ndarray] = None):
-    """Host-side ensemble prep: parse and schedule every tree, gamma rates
-    (unless given), GTR eigenfactors.  Returns (PruningSchedule, GTREigen
-    numpy, rates).
-
-    The whole ensemble is parsed at once (one native batch call), so every
-    chunk shares one schedule width and slot count.
-    """
-    from linearham_tpu_torch.io.native import parse_newicks_batch
-
-    tb = parse_newicks_batch(samples.newicks, hmm.xmsa.labels)
-    if tb is None:   # no native library: the Python parser, on the host
-        tb = batch_trees([parse_newick(nw) for nw in samples.newicks],
-                         hmm.xmsa.labels)
-    if rates is None:
-        rates = gamma_category_rates_batch(samples.alpha, num_rates)
-    return build_schedule(tb), gtr_eigen(samples.er, samples.pi), rates
-
-
-def _to_host(loglik: torch.Tensor, path: SampledPath,
-             span: Optional[profiling.CudaSpan] = None):
-    """Start the device->host copies of one chunk's results.  Returns
-    (loglik, path, done): ``done()`` blocks until the copies landed.
-    ``span``, begun before the chunk's first host-to-device copy, ends
-    with the copies, and ``done()`` records it."""
-    if loglik.device.type != "cuda":
-        return loglik, path, lambda: None
-    host = [None if a is None else a.to("cpu", non_blocking=True)
-            for a in (loglik, *path)]
-    if span is None:
-        event = torch.cuda.Event()
-        event.record()
-        return host[0], SampledPath(*host[1:]), event.synchronize
-    span.close()
-    return host[0], SampledPath(*host[1:]), span.wait
 
 
 def _drain_chunk(hmm, timer, logliks, annotations, start, n, loglik_h,
@@ -141,8 +103,7 @@ def run_pipeline_arrays(
         generator.manual_seed(seed)
 
         with timer.stage("host_prepare"):
-            sched, eig, rates = prepare_ensemble(hmm, samples, num_rates,
-                                                 rates)
+            ensemble = Prepared.of(hmm, samples, num_rates, rates)
 
         starts = list(range(0, T, chunk_size))[:max_chunks]
         logliks = np.zeros(T)
@@ -150,26 +111,23 @@ def run_pipeline_arrays(
         futures = []
         with ThreadPoolExecutor(1) as drain_pool:
             for start in starts:
-                idx = np.arange(start, min(start + chunk_size, T))
+                rows = slice(start, min(start + chunk_size, T))
                 span = profiling.cuda_span("chunk_device", hmm.device)
                 with timer.stage("device_transfer"):
-                    inputs = hmm.ensemble_inputs(sched, eig, samples.pi,
-                                                 rates, idx,
-                                                 non_blocking=True)
+                    inputs = stack_blocks([ensemble.rows(rows)]).to_device(
+                        hmm.device, hmm.dtype)
                 with timer.stage("dispatch"):
-                    loglik, _, path = hmm.step(*inputs, generator,
-                                               sched.n_slots)
-                    host = _to_host(loglik, path, span)
+                    (host,) = step_blocks(inputs, [generator], span)
                 timer.count("chunks")
                 futures.append(drain_pool.submit(
                     _drain_chunk, hmm, timer, logliks, annotations, start,
-                    len(idx), *host, on_chunk=on_chunk))
+                    rows.stop - start, *host, on_chunk=on_chunk))
             with timer.stage("drain_wait"):
                 for f in futures:
                     f.result()   # propagate drain errors; the tail barrier
 
     return PipelineResult(
-        samples=samples, rates=rates, lh_loglik=logliks,
+        samples=samples, rates=ensemble.rates, lh_loglik=logliks,
         logweight=logliks - samples.rb_loglik, annotations=annotations,
         timings=timer.as_dict(), counters=dict(timer.counters))
 

@@ -176,32 +176,29 @@ def _pipeline_run(yaml_path, gene_dir, trees_path, out_tsv, n_trees, chunk,
 
 
 def _time_step(hmm, samples, reps, device) -> dict:
-    """One batched device step over ``samples``: the host prep and copy,
-    the first call, then the median step and pruning launch (ms)."""
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
+    """One batched device step over ``samples`` (``models.step``): the
+    host prep and copy, the first call, then the median step (with its
+    results' copies to the host) and pruning launch (ms)."""
+    from linearham_tpu_torch.models.step import (Prepared, launch,
+                                                 stack_blocks, step_blocks)
 
     t0 = time.perf_counter()
-    sched, eig, rates = prepare_ensemble(hmm, samples, NUM_RATES)
+    prepared = Prepared.of(hmm, samples, NUM_RATES)
     host_prep = time.perf_counter() - t0
     t0 = time.perf_counter()
-    inputs = hmm.ensemble_inputs(sched, eig, samples.pi, rates)
+    inputs = stack_blocks([prepared]).to_device(hmm.device, hmm.dtype)
     _sync(device)
     transfer = time.perf_counter() - t0
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     t0 = time.perf_counter()
-    loglik = hmm.step(*inputs, gen, sched.n_slots)[0]
+    ((loglik, _, _),) = step_blocks(inputs, [gen])
     _sync(device)
     first = time.perf_counter() - t0
     if not bool(torch.isfinite(loglik).all()):
         raise RuntimeError("the step gave a non-finite log-likelihood")
-    step_ms = _median_ms(lambda: hmm.step(*inputs, gen, sched.n_slots),
-                         reps, device)
-    s, eig_t, pi_t, rates_t = inputs
-    prune_ms = _median_ms(lambda: pruning_cuda.site_log_likelihoods(
-        eig_t, pi_t, rates_t, hmm.xmsa_rows, s["sched_src"],
-        s["sched_penc"], s["sched_len"], s["sched_root"], sched.n_slots),
-        reps, device)
+    step_ms = _median_ms(lambda: step_blocks(inputs, [gen]), reps, device)
+    prune_ms = _median_ms(lambda: launch(inputs), reps, device)
     return {"n_trees": samples.n_samples, "step_ms": step_ms,
             "trees_per_sec": samples.n_samples / step_ms * 1e3,
             "pruning_ms": prune_ms, "rest_ms": step_ms - prune_ms,
@@ -269,6 +266,7 @@ def repertoire_mode(a, device, tmp):
                                                          buckets_of,
                                                          run_repertoire,
                                                          write_family_output)
+    from linearham_tpu_torch.utils import profiling
     from linearham_tpu_torch.utils.synth import (make_family,
                                                  make_tree_samples,
                                                  write_repertoire_inputs,
@@ -308,8 +306,10 @@ def repertoire_mode(a, device, tmp):
     tasks = [FamilyTask(hmm=h, samples=load_tree_samples(f[2]))
              for h, f in zip(hmms, families)]
     stages["load_trees_tsv"] = time.perf_counter() - t0
-    results = run_repertoire(tasks, num_rates=NUM_RATES, seed=0,
-                             device=device, dtype=dtype, timings=stages)
+    with profiling.recording() as timer:
+        results = run_repertoire(tasks, num_rates=NUM_RATES, seed=0,
+                                 device=device, dtype=dtype)
+    stages.update(timer.as_dict())
     t0 = time.perf_counter()
     for task, res, f in zip(tasks, results, families):
         write_family_output(task, res, NUM_RATES, f[3])
@@ -327,29 +327,23 @@ def repertoire_mode(a, device, tmp):
 
 
 def repertoire_step_mode(a, device, tmp):
-    from linearham_tpu_torch.tools.pruning_ab import stacked_args
+    from linearham_tpu_torch.models.step import (Prepared, stack_blocks,
+                                                 step_blocks)
     from linearham_tpu_torch.utils.synth import make_family, make_tree_samples
 
     dtype = resolve_dtype(None, device)
     fam = make_family(n_seqs=a.seqs, seed=0)
     hmm = _model(fam, device, dtype)
     samples = [make_tree_samples(fam, a.trees, seed=f) for f in range(a.fams)]
-    args, cols = stacked_args([hmm] * a.fams, samples, dtype, NUM_RATES,
-                              device)
+    inputs = stack_blocks([Prepared.of(hmm, s, NUM_RATES)
+                           for s in samples]).to_device(device, dtype)
     _sync(device)
-    starts = np.cumsum([0] + [s.n_samples for s in samples])
     gens = [torch.Generator(device=device).manual_seed(f)
             for f in range(a.fams)]
 
     def step():
         """One stacked launch, then each family's post-pruning step."""
-        site_ll = pruning_cuda.site_log_likelihoods(*args)
-        out = []
-        for f in range(a.fams):
-            rows = slice(starts[f], starts[f + 1])
-            out.append(hmm.step_from_site_ll(
-                site_ll[rows, :cols[starts[f]]], args[1][rows], gens[f]))
-        return out
+        return step_blocks(inputs, gens)
 
     t0 = time.perf_counter()
     first = step()
@@ -412,23 +406,19 @@ def depth312_mode(a, device, tmp):
 def _logliks(hmm, samples, chunk, plain):
     """Per-tree log-likelihoods (f64 numpy) in chunks, through the kernel
     (``plain=False``; the plain walk on the CPU) or the plain walk."""
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
+    from linearham_tpu_torch.models.step import (Prepared, launch,
+                                                 stack_blocks)
 
-    sched, eig, rates = prepare_ensemble(hmm, samples, NUM_RATES)
+    ensemble = Prepared.of(hmm, samples, NUM_RATES)
     out = np.zeros(samples.n_samples)
     for start in range(0, samples.n_samples, chunk):
-        idx = np.arange(start, min(start + chunk, samples.n_samples))
-        inputs = hmm.ensemble_inputs(sched, eig, samples.pi, rates, idx)
-        if plain:
-            s, eig_t, pi_t, rates_t = inputs
-            site_ll = pruning_cuda.site_log_likelihoods_plain(
-                eig_t, pi_t, rates_t, hmm.xmsa_rows, s["sched_src"],
-                s["sched_penc"], s["sched_len"], s["sched_root"],
-                sched.n_slots)
-            ll = hmm.step_from_site_ll(site_ll, pi_t, None)[0]
-        else:
-            ll = hmm.step(*inputs, None, sched.n_slots)[0]
-        out[idx] = ll.double().cpu().numpy()
+        rows = slice(start, min(start + chunk, samples.n_samples))
+        inputs = stack_blocks([ensemble.rows(rows)]).to_device(hmm.device,
+                                                               hmm.dtype)
+        site_ll = pruning_cuda.site_log_likelihoods_plain(*inputs.args) \
+            if plain else launch(inputs)
+        ll = hmm.step_from_site_ll(site_ll, inputs.pi, None)[0]
+        out[rows] = ll.double().cpu().numpy()
     return out
 
 
@@ -630,7 +620,8 @@ def probe_mode(a, device, tmp):
     from linearham_tpu_torch.models.phylo_hmm import (PhyloHMM,
                                                       gather_consts,
                                                       place_consts)
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
+    from linearham_tpu_torch.models.step import (Prepared, stack_blocks,
+                                                 step_blocks)
     from linearham_tpu_torch.utils.synth import make_family, make_tree_samples
 
     dtype = resolve_dtype(None, device)
@@ -670,14 +661,14 @@ def probe_mode(a, device, tmp):
                                                device=device, dtype=dtype))
     if device.type == "cuda":
         t("kernel_load", pruning_cuda.kernel_lib)
-    sched, eig, rates = t("host_prepare", lambda: prepare_ensemble(
-        hmm, samples, NUM_RATES))
-    inputs = t("ensemble_inputs", lambda: hmm.ensemble_inputs(
-        sched, eig, samples.pi, rates))
+    prepared = t("host_prepare", lambda: Prepared.of(hmm, samples,
+                                                      NUM_RATES))
+    inputs = t("launch_inputs", lambda: stack_blocks(
+        [prepared]).to_device(device, dtype))
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     for name in ("first_step", "second_step"):
-        loglik = t(name, lambda: hmm.step(*inputs, gen, sched.n_slots)[0])
+        loglik = t(name, lambda: step_blocks(inputs, [gen])[0][0])
         if not bool(torch.isfinite(loglik).all()):
             raise RuntimeError(f"{name}: a non-finite log-likelihood")
     return {"metric": "cold_family_build_s", "value": stages["full_build_hmm"],

@@ -131,14 +131,9 @@ def make_batch(n_trees: int, dtype, tree_seed=None, device="cuda",
 
 def ensemble_args(hmm, samples, num_rates: int = 4):
     """Kernel arguments (site_log_likelihoods') of ``samples`` under
-    ``hmm``, on its device."""
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
-
-    sched, eig, rates = prepare_ensemble(hmm, samples, num_rates)
-    s, eig_t, pi_t, rates_t = hmm.ensemble_inputs(sched, eig, samples.pi,
-                                                  rates)
-    return [eig_t, pi_t, rates_t, hmm.xmsa_rows, s["sched_src"],
-            s["sched_penc"], s["sched_len"], s["sched_root"], sched.n_slots]
+    ``hmm``, on its device: ``models.step``'s one-family launch."""
+    return stacked_args([hmm], [samples], hmm.dtype, num_rates,
+                        hmm.device)[0]
 
 
 def family_args(n_trees: int, dtype, num_rates: int = 4, tree_seed=None,
@@ -150,31 +145,15 @@ def family_args(n_trees: int, dtype, num_rates: int = 4, tree_seed=None,
 
 
 def stacked_args(hmms, samples, dtype, num_rates: int = 4, device="cuda"):
-    """(kernel arguments of one stacked launch over the families on
-    ``device``, each tree's real sites)."""
-    from linearham_tpu_torch.ops.gtr import GTREigen
-    from linearham_tpu_torch.ops.pruning_cuda import stack_schedules
-    from linearham_tpu_torch.pipeline.run import prepare_ensemble
+    """(kernel arguments of one launch over the families on ``device``,
+    built by ``models.step``; each tree's real sites)."""
+    from linearham_tpu_torch.models.step import Prepared, stack_blocks
 
-    preps = [prepare_ensemble(h, s, num_rates) for h, s in zip(hmms, samples)]
-    stacked = stack_schedules(
-        [p[0] for p in preps],
-        [np.asarray(h.xmsa.matrix, np.int32) for h in hmms])
-
-    def put(a):
-        a = np.ascontiguousarray(a)
-        return torch.as_tensor(a, dtype=dtype if a.dtype.kind == "f"
-                               else torch.int32, device=device)
-
-    st = stacked.sched
-    args = [GTREigen(*(put(np.concatenate(parts))
-                       for parts in zip(*(p[1] for p in preps)))),
-            put(np.concatenate([s.pi for s in samples])),
-            put(np.concatenate([p[2] for p in preps])), put(stacked.codes),
-            put(st.src), put(st.penc), put(st.length), put(st.root),
-            st.n_slots]
-    cols = np.repeat(stacked.n_cols, [s.n_samples for s in samples])
-    return args, cols
+    host = stack_blocks([Prepared.of(h, s, num_rates)
+                         for h, s in zip(hmms, samples)])
+    args = list(host.to_device(torch.device(device), dtype).args)
+    return args, np.repeat(host.stacked.n_cols,
+                           [s.n_samples for s in samples])
 
 
 def igh_bucket_args(dtype=torch.float32):

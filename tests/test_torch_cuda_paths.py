@@ -3,7 +3,8 @@ a GPU).  jax-free, and needs no conftest fixture, so it runs on the card's
 machine with ``python -m pytest --noconftest -m cuda``.
 
 * TreeBatch pruning in f64 on the card equals the CPU's at 1e-9;
-* ``PhyloHMM.map_step`` in f32 launches the kernel exactly once and meets
+* the single tree's MAP step in f32 (one launch through ``models.step``,
+  then ``PhyloHMM.map_step``) launches the kernel exactly once and meets
   the same step with the plain pruning on the card (MAP score within
   5e-3 nats, the kernel's site tolerance summed over a 15-site family);
 * ASR on the card keeps every observed tip base.
@@ -69,18 +70,17 @@ def test_treebatch_pruning_on_the_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_map_step_launches_the_kernel_once(cuda_device, monkeypatch):
-    import linearham_tpu_torch.models.phylo_hmm as phylo_hmm
+    from linearham_tpu_torch.models import step
     from linearham_tpu_torch.ops import pruning_cuda
 
     hmm = _family(cuda_device, torch.float32)
-    inputs = hmm._tree_inputs()
     before = pruning_cuda.launches
-    score, path = hmm.map_step(*inputs, hmm._schedule.n_slots)
+    score, path = hmm.map_step(*hmm._launch_current())
     torch.cuda.synchronize()
     assert pruning_cuda.launches == before + 1
-    monkeypatch.setattr(phylo_hmm, "site_log_likelihoods",
+    monkeypatch.setattr(step, "site_log_likelihoods",
                         pruning_cuda.site_log_likelihoods_plain)
-    plain_score, plain_path = hmm.map_step(*inputs, hmm._schedule.n_slots)
+    plain_score, plain_path = hmm.map_step(*hmm._launch_current())
     assert pruning_cuda.launches == before + 1
     assert abs(float(score[0]) - float(plain_score[0])) <= 5e-3
     for a, b in zip(path, plain_path):

@@ -21,11 +21,13 @@ import torch
 from linearham_tpu_torch.io.germline import load_gene_map
 from linearham_tpu_torch.io.trees_tsv import load_tree_samples
 from linearham_tpu_torch.models import SimpleHMM
-from linearham_tpu_torch.models.phylo_hmm import PhyloHMM, phylo_emissions
+from linearham_tpu_torch.models.phylo_hmm import (PhyloHMM,
+                                                  naive_prior_correction,
+                                                  region_emissions)
+from linearham_tpu_torch.models.step import Prepared, launch, stack_blocks
 from linearham_tpu_torch.ops.ffbs import path_to_numpy, sample_path
 from linearham_tpu_torch.ops.forward import widen_cache
-from linearham_tpu_torch.pipeline.run import (prepare_ensemble,
-                                              run_pipeline_arrays,
+from linearham_tpu_torch.pipeline.run import (run_pipeline_arrays,
                                               write_output_tsv)
 
 torch.set_num_threads(1)
@@ -188,10 +190,11 @@ def test_light_phylo_pipeline_matches_brute_force(tmp_path, locus):
     result = run_pipeline_arrays(hmm, samples, num_rates=4, seed=0,
                                  chunk_size=3)
 
-    sched, eig, rates = prepare_ensemble(hmm, samples, 4)
-    inputs = hmm.ensemble_inputs(sched, eig, samples.pi, rates)
-    emis, _ = phylo_emissions(hmm.consts, hmm.xmsa_rows, hmm.naive_bases,
-                              *inputs, False, sched.n_slots)
+    inputs = stack_blocks([Prepared.of(hmm, samples, 4)]).to_device(
+        hmm.device, hmm.dtype)
+    emis = region_emissions(
+        naive_prior_correction(launch(inputs), inputs.pi, hmm.naive_bases),
+        hmm.consts, False)
     trans = _numpy(hmm.trans)
     oracle = [_brute_force_loglik(trans, _numpy(emis, tree=t))
               for t in range(samples.n_samples)]

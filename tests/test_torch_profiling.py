@@ -283,11 +283,10 @@ def test_chunk_device_spans_on_the_card(pipeline_args, cuda_device,
                                              device=cuda_device),
                         samples=load_tree_samples(f.trees_path))
              for f in reps["igh"].families]
-    timings = {}
     with profiling.recording() as timer:
-        run_repertoire(tasks, device=cuda_device, timings=timings)
+        run_repertoire(tasks, device=cuda_device)
     assert timer.counters["chunks"] == timer.counters["pruning_launches"]
-    assert timings["chunk_device"] > 0
+    assert timer.as_dict()["chunk_device"] > 0
 
 
 def _repertoire_profile(manifest, gene_dir, capsys):

@@ -33,8 +33,10 @@ from linearham_tpu_torch.parallel import multihost
 from linearham_tpu_torch.parallel.repertoire import (FamilyTask,
                                                      run_repertoire,
                                                      write_family_output)
-from linearham_tpu_torch.pipeline.run import (prepare_ensemble,
-                                              run_pipeline_arrays)
+from linearham_tpu_torch.models.step import (Prepared, launch,
+                                             prepare_ensemble, stack_blocks)
+from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
+from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.synth import (make_family, make_light_family,
                                              make_tree_samples,
                                              write_repertoire_inputs)
@@ -148,7 +150,7 @@ def test_repertoire_ragged_tree_counts(tmp_path):
 
 
 def test_one_pruning_call_per_bucket(pairs, monkeypatch):
-    import linearham_tpu_torch.parallel.mesh as mesh
+    import linearham_tpu_torch.models.step as step
 
     calls = []
 
@@ -156,7 +158,7 @@ def test_one_pruning_call_per_bucket(pairs, monkeypatch):
         calls.append(args[4].shape[0])            # trees in the call
         return pruning_cuda.site_log_likelihoods(*args)
 
-    monkeypatch.setattr(mesh, "site_log_likelihoods", counting)
+    monkeypatch.setattr(step, "site_log_likelihoods", counting)
     run_repertoire([p for _, p in pairs], num_rates=4, device="cpu")
     assert calls == [8, 4, 4]
 
@@ -271,10 +273,10 @@ def test_stack_schedules_checks_the_stacked_rows():
 # -- end to end ----------------------------------------------------------------
 
 def test_repertoire_e2e_tsv_and_timings(pairs, tmp_path):
-    timings = {}
     tasks = [p for _, p in pairs]
-    results = run_repertoire(tasks, num_rates=4, seed=0, device="cpu",
-                             timings=timings)
+    with profiling.recording() as timer:
+        results = run_repertoire(tasks, num_rates=4, seed=0, device="cpu")
+    timings = timer.as_dict()
     assert set(timings) == STAGES
     assert all(v >= 0 for v in timings.values())
     for f, (task, res) in enumerate(zip(tasks, results)):
@@ -598,24 +600,11 @@ def test_card_one_launch_per_bucket_and_matches_pipeline(cuda_device,
 @pytest.mark.cuda
 def test_card_stacked_launch_matches_plain(cuda_device, tmp_path):
     tasks = _card_tasks(tmp_path)
-    preps = [prepare_ensemble(t.hmm, t.samples, 4) for t in tasks]
-    stacked = pruning_cuda.stack_schedules(
-        [p[0] for p in preps],
-        [np.asarray(t.hmm.xmsa.matrix, np.int32) for t in tasks])
-
-    def put(a):
-        a = np.ascontiguousarray(a)
-        return torch.as_tensor(a, dtype=torch.float32 if a.dtype.kind == "f"
-                               else torch.int32, device="cuda")
-
-    s = stacked.sched
-    args = [GTREigen(*(put(np.concatenate(parts))
-                       for parts in zip(*(p[1] for p in preps)))),
-            put(np.concatenate([t.samples.pi for t in tasks])),
-            put(np.concatenate([p[2] for p in preps])), put(stacked.codes),
-            put(s.src), put(s.penc), put(s.length), put(s.root), s.n_slots]
-    got = pruning_cuda.site_log_likelihoods(*args)
-    want = pruning_cuda.site_log_likelihoods_plain(*args)
+    inputs = stack_blocks([Prepared.of(t.hmm, t.samples, 4)
+                           for t in tasks]).to_device(torch.device("cuda"),
+                                                      torch.float32)
+    got = launch(inputs)
+    want = pruning_cuda.site_log_likelihoods_plain(*inputs.args)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)

@@ -73,6 +73,17 @@ def _load() -> Optional[ctypes.CDLL]:
             np.ctypeslib.ndpointer(np.int32),     # peak out
             ctypes.c_char_p, ctypes.c_long,
         ]
+    if hasattr(lib, "lh_format_output_rows"):
+        lib.lh_format_output_rows.restype = ctypes.c_long
+        lib.lh_format_output_rows.argtypes = [
+            ctypes.c_long, ctypes.c_long,
+            np.ctypeslib.ndpointer(np.int64),     # iteration
+            np.ctypeslib.ndpointer(np.float64),   # head columns
+            ctypes.c_char_p, np.ctypeslib.ndpointer(np.int64),  # newicks
+            np.ctypeslib.ndpointer(np.float64),   # tail columns
+            ctypes.c_char_p, np.ctypeslib.ndpointer(np.int64),  # annots
+            np.ctypeslib.ndpointer(np.uint8), ctypes.c_long,
+        ]
     _lib = lib
     return _lib
 
@@ -218,3 +229,44 @@ def parse_trees_tsv_bytes(data: bytes):
         for i in range(n)
     ]
     return numeric[:n], newicks
+
+
+def _joined(texts: Sequence[str]):
+    """UTF-8 bytes of ``texts`` end to end, and their [len + 1] offsets."""
+    encoded = [t.encode() for t in texts]
+    offsets = np.zeros(len(encoded) + 1, np.int64)
+    np.cumsum([len(b) for b in encoded], out=offsets[1:])
+    return b"".join(encoded), offsets
+
+
+def format_output_rows(iteration, head, newicks: Sequence[str], tail,
+                       annots: Sequence[str]) -> Optional[str]:
+    """Rows of the pipeline TSV via the C++ kernel (native/output_tsv.cpp).
+
+    ``iteration`` [n] and ``head`` [n, 13] (RB log-likelihood, prior,
+    alpha, er[1..6], pi[1..4]) come before each row's Newick, stripped of
+    its comments; ``tail`` [n, k] (sr[1..R], LH log-likelihood, LogWeight)
+    and ``annots[i]``, the row's tab-joined annotation columns, after it.
+    Returns the rows' text, each ending in a newline, or None when the
+    native library is unavailable or lacks the symbol (callers fall back to
+    formatting in Python).
+    """
+    lib = _load()
+    if lib is None or not hasattr(lib, "lh_format_output_rows"):
+        return None
+    iteration = np.ascontiguousarray(iteration, np.int64)
+    head = np.ascontiguousarray(head, np.float64)
+    tail = np.ascontiguousarray(tail, np.float64)
+    n = iteration.shape[0]
+    nw, nw_off = _joined(newicks)
+    an, an_off = _joined(annots)
+    # 32 bytes a number and its tab, as the kernel's own check counts them.
+    cap = n * (32 * (1 + head.shape[1] + tail.shape[1]) + 4) \
+        + len(nw) + len(an)
+    out = np.empty(max(cap, 1), np.uint8)
+    written = lib.lh_format_output_rows(
+        n, tail.shape[1], iteration, head, nw, nw_off, tail, an, an_off,
+        out, out.shape[0])
+    if written < 0:
+        raise ValueError("native TSV row formatting overran its buffer")
+    return out[:written].tobytes().decode()

@@ -52,13 +52,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from linearham_tpu_torch.io.output_tsv import write_tsv_header, write_tsv_rows
 from linearham_tpu_torch.io.trees_tsv import TreeSamples
 from linearham_tpu_torch.models.decode import Annotation
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
 from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch
 from linearham_tpu_torch.parallel.mesh import (FamilyBlock, FamilyMesh,
                                                local_mesh, sharded_pipeline)
-from linearham_tpu_torch.pipeline.run import write_tsv_header, write_tsv_rows
 from linearham_tpu_torch.utils.fileio import atomic_write
 from linearham_tpu_torch.utils.runtime import resolve_device, resolve_dtype
 

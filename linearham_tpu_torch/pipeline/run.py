@@ -11,23 +11,24 @@ each chunk's results in order, decodes its annotations and streams its rows
 to the output TSV.
 
 Output columns match the reference contract exactly
-(src/PhyloHMM.cpp:244-327).
+(src/PhyloHMM.cpp:244-327); ``io/output_tsv`` writes them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import json
-import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional, TextIO
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from linearham_tpu_torch.compiler.family_cache import cached_phylo_hmm
+from linearham_tpu_torch.io.output_tsv import write_tsv_header, write_tsv_rows
 from linearham_tpu_torch.io.trees_tsv import TreeSamples, load_tree_samples
 from linearham_tpu_torch.models.decode import Annotation
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
@@ -37,8 +38,6 @@ from linearham_tpu_torch.ops.gtr import gamma_category_rates_batch
 from linearham_tpu_torch.utils import profiling
 from linearham_tpu_torch.utils.fileio import atomic_write
 from linearham_tpu_torch.utils.runtime import resolve_dtype
-
-_COMMENT_RE = re.compile(r"\[[^\]]*\]")
 
 
 @dataclass
@@ -94,7 +93,9 @@ def run_pipeline_arrays(
     thread, device_step, decode and write_tsv (around ``on_chunk``) on the
     drain thread, chunk_device on the device (CUDA events from before the
     chunk's first host-to-device copy to its results' landing); then
-    drain_wait, this thread's wait for the drain.  Counter: chunks.
+    drain_wait, this thread's wait for the drain.  Counter: chunks.  The
+    drain thread records into the request's recorder too (the writer's
+    ``tsv_*_rows`` counters, from ``on_chunk``).
     """
     with profiling.recording() as timer:
         T = samples.n_samples
@@ -119,9 +120,12 @@ def run_pipeline_arrays(
                 with timer.stage("dispatch"):
                     (host,) = step_blocks(inputs, [generator], span)
                 timer.count("chunks")
+                # The drain runs in a copy of this thread's context, so
+                # the request's recorder is the active one there too.
                 futures.append(drain_pool.submit(
-                    _drain_chunk, hmm, timer, logliks, annotations, start,
-                    rows.stop - start, *host, on_chunk=on_chunk))
+                    contextvars.copy_context().run, _drain_chunk, hmm, timer,
+                    logliks, annotations, start, rows.stop - start, *host,
+                    on_chunk=on_chunk))
             with timer.stage("drain_wait"):
                 for f in futures:
                     f.result()   # propagate drain errors; the tail barrier
@@ -130,69 +134,6 @@ def run_pipeline_arrays(
         samples=samples, rates=ensemble.rates, lh_loglik=logliks,
         logweight=logliks - samples.rb_loglik, annotations=annotations,
         timings=timer.as_dict(), counters=dict(timer.counters))
-
-
-def write_tsv_header(num_rates: int, heavy: bool, outfile: TextIO) -> None:
-    """Write the reference-format pipeline TSV header row."""
-    cols = (
-        ["Iteration", "RBLogLikelihood", "Prior", "alpha"]
-        + [f"er[{i}]" for i in range(1, 7)]
-        + [f"pi[{i}]" for i in range(1, 5)]
-        + ["tree"]
-        + [f"sr[{i}]" for i in range(1, num_rates + 1)]
-        + ["LHLogLikelihood", "LogWeight", "NaiveSequence",
-           "VGene", "V5pDel", "V3pDel", "VFwkInsertion"]
-    )
-    if heavy:
-        cols += ["VDInsertion", "DGene", "D5pDel", "D3pDel", "DJInsertion"]
-    else:
-        cols += ["VJInsertion"]
-    cols += ["JGene", "J5pDel", "J3pDel", "JFwkInsertion"]
-    outfile.write("\t".join(cols) + "\n")
-
-
-def write_tsv_rows(samples: TreeSamples, rates, lh_loglik, logweight,
-                   annotations, start: int, n: int, heavy: bool,
-                   outfile: TextIO) -> None:
-    """Write rows [start, start+n) of the pipeline TSV.
-
-    ``samples`` and ``rates`` cover the whole ensemble; ``lh_loglik``,
-    ``logweight`` and ``annotations`` are the chunk's own (index 0 is row
-    ``start``).
-    """
-    if len(annotations) != n:
-        raise ValueError(f"chunk arrays must have length {n}, "
-                         f"got {len(annotations)}")
-    s = samples
-    for t in range(start, start + n):
-        i = t - start
-        ann = annotations[i]
-        row = (
-            [s.iteration[t], s.rb_loglik[t], s.prior[t], s.alpha[t]]
-            + list(s.er[t]) + list(s.pi[t])
-            + [_COMMENT_RE.sub("", s.newicks[t])]
-            + list(rates[t])
-            + [lh_loglik[i], logweight[i], ann.naive_seq,
-               ann.vgerm_state, ann.v_5p_del, ann.v_3p_del,
-               ann.v_fwk_insertion]
-        )
-        if heavy:
-            row += [ann.vd_insertion, ann.dgerm_state, ann.d_5p_del,
-                    ann.d_3p_del, ann.dj_insertion]
-        else:
-            row += [ann.vd_insertion]
-        row += [ann.jgerm_state, ann.j_5p_del, ann.j_3p_del,
-                ann.j_fwk_insertion]
-        outfile.write("\t".join(str(v) for v in row) + "\n")
-
-
-def write_output_tsv(result: PipelineResult, heavy: bool,
-                     outfile: TextIO) -> None:
-    """Write the reference-format pipeline TSV (header + all rows)."""
-    write_tsv_header(result.rates.shape[1], heavy, outfile)
-    write_tsv_rows(result.samples, result.rates, result.lh_loglik,
-                   result.logweight, result.annotations, 0,
-                   result.samples.n_samples, heavy, outfile)
 
 
 def run_pipeline(

@@ -1,14 +1,14 @@
 """Build and load the port's C++ host library (``csrc/native/*.cpp``).
 
-The batch Newick parser, the trees-TSV reader and the schedule builder are
-compiled with ``g++`` into one shared library at first use, from the
-sources in the checkout only, into ``build/native/`` at the repository
-root, keyed by a hash of the sources, the flags and the compiler's version
-(an edited source is rebuilt, an unchanged one reused).  The build goes to
-a temporary name and is renamed into place, so concurrent processes each
-see a whole file.  Without a compiler, or where ``build/native/`` cannot
-be created, ``build_native`` returns None and ``io/native.py``'s callers
-take their Python paths.
+The batch Newick parser, the trees-TSV reader, the schedule builder and the
+output-TSV row formatter are compiled with ``g++`` into one shared library
+at first use, from the sources in the checkout only, into ``build/native/``
+at the repository root, keyed by a hash of the sources, the flags and the
+compiler's version (an edited source is rebuilt, an unchanged one reused).
+The build goes to a temporary name and is renamed into place, so concurrent
+processes each see a whole file.  Without a compiler, or where
+``build/native/`` cannot be created, ``build_native`` returns None and
+``io/native.py``'s callers take their Python paths.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from typing import Optional
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 SOURCE_DIR = Path(__file__).resolve().parents[1] / "csrc" / "native"
-SOURCES = ("newick_parser.cpp", "trees_tsv.cpp", "schedule.cpp")
+SOURCES = ("newick_parser.cpp", "trees_tsv.cpp", "schedule.cpp",
+           "output_tsv.cpp")
 BUILD_DIR = REPO_ROOT / "build" / "native"
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from linearham_tpu_torch.io.germline import load_gene_map
+from linearham_tpu_torch.io.output_tsv import write_output_tsv
 from linearham_tpu_torch.io.trees_tsv import load_tree_samples
 from linearham_tpu_torch.models import SimpleHMM
 from linearham_tpu_torch.models.phylo_hmm import (PhyloHMM,
@@ -27,8 +28,7 @@ from linearham_tpu_torch.models.phylo_hmm import (PhyloHMM,
 from linearham_tpu_torch.models.step import Prepared, launch, stack_blocks
 from linearham_tpu_torch.ops.ffbs import path_to_numpy, sample_path
 from linearham_tpu_torch.ops.forward import widen_cache
-from linearham_tpu_torch.pipeline.run import (run_pipeline_arrays,
-                                              write_output_tsv)
+from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
 
 torch.set_num_threads(1)
 

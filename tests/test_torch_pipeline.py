@@ -16,11 +16,9 @@ import pytest
 import torch
 
 from linearham_tpu.io.trees_tsv import load_tree_samples
+from linearham_tpu_torch.io.output_tsv import write_tsv_header, write_tsv_rows
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
-from linearham_tpu_torch.pipeline.run import (run_pipeline,
-                                              run_pipeline_arrays,
-                                              write_tsv_header,
-                                              write_tsv_rows)
+from linearham_tpu_torch.pipeline.run import run_pipeline, run_pipeline_arrays
 from linearham_tpu_torch.utils.synth import write_pipeline_inputs
 
 from test_torch_profiling import junction_rows

@@ -25,9 +25,9 @@ import torch
 
 from linearham_tpu_torch.models.phylo_hmm import PhyloHMM
 from linearham_tpu_torch.io.partis import load_cluster
+from linearham_tpu_torch.io.output_tsv import write_output_tsv
 from linearham_tpu_torch.io.trees_tsv import load_tree_samples
-from linearham_tpu_torch.pipeline.run import (run_pipeline_arrays,
-                                              write_output_tsv)
+from linearham_tpu_torch.pipeline.run import run_pipeline_arrays
 from linearham_tpu_torch.postprocess import bootstrap_asr
 from linearham_tpu_torch.utils.seqs import write_fasta
 from linearham_tpu_torch.utils.synth import make_family, write_partis_yaml

@@ -193,7 +193,8 @@ def test_run_pipeline_timings_keep_the_old_keys(pipeline_args, tmp_path):
     # A cold build reads 8 gene files and 1 partis file.
     assert cold.counters == {"cache_misses": 1, "gene_map_parses": 1,
                              YAML_LOADS: 8 + 1, "chunks": 3,
-                             "junction_rows": 3 * rows}
+                             "junction_rows": 3 * rows,
+                             "tsv_native_rows": 7}
     build = sum(cold.timings[k] for k in ("family_key", "cache_read",
                                           "load_cluster", "load_gene_map",
                                           "compile", "cache_write", "place"))
@@ -201,7 +202,8 @@ def test_run_pipeline_timings_keep_the_old_keys(pipeline_args, tmp_path):
     warm = run_pipeline(*pipeline_args, str(tmp_path / "b.tsv"), 4,
                         chunk_size=3, device="cpu")
     assert warm.counters == {"cache_hits": 1, "chunks": 3,
-                             "junction_rows": 3 * rows}
+                             "junction_rows": 3 * rows,
+                             "tsv_native_rows": 7}
     assert "load_gene_map" not in warm.timings
     assert (tmp_path / "a.tsv").read_text().count("\n") == 8
 

@@ -341,7 +341,8 @@ def test_cli_repertoire_on_the_synthetic_writer(tmp_path):
                         YAML_LOADS: 8 + 3, "chunks": 1,
                         "junction_rows": sum(
                             junction_rows(f.yaml_path, 0, f.gene_dir)
-                            for f in igh.families)}
+                            for f in igh.families),
+                        "tsv_native_rows": 12}
     (trace,) = trace_dir.glob("repertoire.*.trace.json")
     names = {e.get("name") for e in json.loads(trace.read_text())[
         "traceEvents"]}
@@ -408,9 +409,10 @@ def test_cli_repertoire_parses_the_shared_gene_dir_once(tmp_path, capsys,
     # 8 gene files once, and the 4 families' partis files.
     assert cold == {"cache_misses": 4, "gene_map_parses": 1,
                     "gene_map_shared": 3, YAML_LOADS: 8 + 4, "chunks": 1,
-                    "junction_rows": scanned}
+                    "junction_rows": scanned, "tsv_native_rows": 14}
     warm, again = call("warm", "fc")
-    assert warm == {"cache_hits": 4, "chunks": 1, "junction_rows": scanned}
+    assert warm == {"cache_hits": 4, "chunks": 1, "junction_rows": scanned,
+                    "tsv_native_rows": 14}
     assert again == shared
 
     lone = family_cache.load_host_products
@@ -420,7 +422,7 @@ def test_cli_repertoire_parses_the_shared_gene_dir_once(tmp_path, capsys,
     each, alone = call("alone", "fc_alone")
     assert each == {"cache_misses": 4, "gene_map_parses": 4,
                     YAML_LOADS: 4 * 8 + 4, "chunks": 1,
-                    "junction_rows": scanned}
+                    "junction_rows": scanned, "tsv_native_rows": 14}
     assert alone == shared
     assert all(b.count(b"\n") > 1 for b in shared)
 
@@ -453,6 +455,30 @@ def test_cli_repertoire_writes_the_same_bytes_under_either_loader(
     assert slow == {**rest, "yaml_python_loads": n_gene_files + 3}
     assert fast_tsvs == slow_tsvs
     assert all(b.count(b"\n") > 1 for b in fast_tsvs)
+
+
+@pytest.mark.parametrize("locus", ["igh", "igk"])
+def test_cli_repertoire_writes_the_same_bytes_under_either_writer(
+        locus, tmp_path, capsys, monkeypatch):
+    """A cold call over three families formats every row in the C++ host
+    library, and writes TSVs byte-equal to those of the same call with the
+    rows formatted in Python."""
+    from linearham_tpu_torch.io import output_tsv
+
+    (rep,) = write_repertoire_inputs(
+        str(tmp_path / "in"), [(locus, 3, 4, 0.02), (locus, 5, 3, 0.05),
+                               (locus, 4, 2, 0.08)]).values()
+    monkeypatch.setenv("LINEARHAM_FAMILY_CACHE", "off")
+    fast, fast_tsvs = _repertoire_call(rep, tmp_path / "native", capsys)
+    with monkeypatch.context() as m:
+        m.setattr(output_tsv, "format_output_rows", lambda *args: None)
+        slow, slow_tsvs = _repertoire_call(rep, tmp_path / "python", capsys)
+    rest = {k: v for k, v in fast.items() if k != "tsv_native_rows"}
+    assert fast == {**rest, "tsv_native_rows": 4 + 3 + 2}
+    assert slow == {**rest, "tsv_python_rows": 4 + 3 + 2}
+    assert fast_tsvs == slow_tsvs
+    assert [b.count(b"\n") for b in fast_tsvs] == [5, 4, 3]
+    assert not any(b"[&index=" in b for b in fast_tsvs)
 
 
 @pytest.mark.parametrize("manifest,message", [

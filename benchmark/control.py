@@ -3,10 +3,12 @@
     python3 benchmark/control.py --workload ch103.serve --seeds 1 2 3
 
 For each seed it writes the cell's pool of inputs as a run would, and puts
-the plain reference in the program's place, computed in float32 with TF32
-matmuls (every input of the pruning's matmuls rounded to TF32, so the
-control does not hang on which kernel the library picks): the precision
-below the configurations' float32 with TF32 off.
+the plain reference in the program's place, computed in the precision
+below the one the configuration states (``CONTROL``): for ``f32``, float32
+with TF32 matmuls (every input of the pruning's matmuls rounded to TF32,
+so the control does not hang on which kernel the library picks), the
+precision below float32 with TF32 off; for ``f64``, float32 with TF32
+off.
 Job by job, once over the pool, it writes the output TSVs the program
 would write: the copied columns, the gamma rates, the log-likelihood and
 log weight, and an annotation drawn from its own posterior.  The
@@ -22,6 +24,7 @@ import os
 import shutil
 import sys
 import tempfile
+from typing import Optional
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -31,6 +34,10 @@ import numpy as np  # noqa: E402
 from benchmark import check, drivers, harness  # noqa: E402
 from benchmark.reference import annotation  # noqa: E402
 from benchmark.reference.newick import strip_comments  # noqa: E402
+
+# The control's precision for each a configuration may state: (the torch
+# dtype's name, whether the pruning's matmul inputs are rounded to TF32).
+CONTROL = {"f32": ("float32", True), "f64": ("float32", False)}
 
 
 def write_outputs(model, out: check.Output, num_rates: int, block: int,
@@ -60,19 +67,22 @@ def write_outputs(model, out: check.Output, num_rates: int, block: int,
 
 
 def control(cell, seed: int, rows: int, device: str = "cuda",
-            dtype=None, tf32: bool = True) -> check.Verdict:
+            dtype=None, tf32: Optional[bool] = None) -> check.Verdict:
     """The verdict of the comparison on the control's outputs of one
-    seed.  ``dtype`` (float32 by default) and ``tf32`` name the control's
-    precision: with ``tf32`` its pruning rounds every matmul input to TF32
-    (and the card may use TF32 kernels too).  The tests also run it in
-    float64 without TF32 on the CPU, as a sound run."""
+    seed.  ``dtype`` and ``tf32`` name the control's precision, by default
+    ``CONTROL``'s for the configuration's: with ``tf32`` its pruning rounds
+    every matmul input to TF32 (and the card may use TF32 kernels too).
+    The tests also run it in float64 without TF32 on the CPU, as a sound
+    run."""
     import torch
 
     from benchmark.reference import model
     from benchmark.reference.model import FamilyModel
 
-    dtype = torch.float32 if dtype is None else dtype
     config, traffic = cell.config, cell.traffic
+    name, stated_tf32 = CONTROL[config["precision"]]
+    dtype = getattr(torch, name) if dtype is None else dtype
+    tf32 = stated_tf32 if tf32 is None else tf32
     workdir = tempfile.mkdtemp(prefix="linearham-control-")
     driver = None
     matmul = torch.backends.cuda.matmul.allow_tf32

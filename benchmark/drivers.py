@@ -15,6 +15,11 @@ set-up).  ``vary`` says what a pool item is: ``partition`` (a germline
 directory and every family of the configuration, new) or ``trees`` (new
 posterior samples of the same families).  Jobs cycle through the pool;
 job ``k`` passes the program the sampling seed ``job_seed(seed, k)``.
+
+Both entries pass the program the configuration's ``precision``
+(``--precision`` of ``cli repertoire``, ``precision=`` of
+``run_pipeline``), one of ``PRECISIONS``; a configuration without it, or
+with another value, is refused when the driver is made.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ from benchmark import gen
 from benchmark.check import Output
 
 _PROFILE_RE = re.compile(r"^#\s+(\w+): ([0-9.]+)ms$")
+# The precisions a configuration may state.  The port's ``auto`` is not
+# one: it picks f32 on a card and f64 on the CPU, whatever was stated.
+PRECISIONS = ("f32", "f64")
 
 
 def job_seed(seed: int, k: int) -> int:
@@ -116,6 +124,11 @@ class Driver:
         self.pool, self.seed, self.device = pool, seed, device
         self.stages = stages
         self.num_rates = config["num_rates"]
+        self.precision = config.get("precision")
+        if self.precision not in PRECISIONS:
+            raise ValueError(
+                f"configuration {config.get('name')!r} states precision "
+                f"{self.precision!r}; it has to state one of {PRECISIONS}")
         self.cache_root = os.path.join(workdir, "family_cache")
         self._saved_env = os.environ.get("LINEARHAM_FAMILY_CACHE")
         if traffic["family_cache"] == "warm":
@@ -142,22 +155,30 @@ class Driver:
         return self._pipeline(k, outdir)
 
     def warm_up(self) -> Job:
-        """One job at the cell's shapes before the window.  A repertoire
-        warm-up runs only the ``warmup_families`` largest families of the
-        first partition (by sequences, then trees): every family costs a
-        cold build, and the bucket's launch has no shape to compile."""
-        families = None
-        if self.traffic["entry"] == "repertoire":
-            fams = self.pool[0].families
-            order = sorted(range(len(fams)), key=lambda i: (
-                -fams[i].n_seqs, -fams[i].n_trees))
-            families = sorted(order[:self.traffic["warmup_families"]])
+        """The jobs before the window, at the cell's shapes, as one Job.
+
+        A repertoire warm-up is one job over only the ``warmup_families``
+        largest families of the first partition (by sequences, then
+        trees): every family costs a cold build, and the bucket's launch
+        has no shape to compile.  A ``warm`` pipeline warm-up is one
+        request for each family of the first pool item, in family order
+        (the window's first requests), so every family is in the cache
+        before the window opens.  A ``cold`` pipeline warm-up is one
+        request: its window builds every family anyway."""
         self._cold_cache("warmup")
         outdir = os.path.join(self.workdir, "out", "warmup")
         os.makedirs(outdir, exist_ok=True)
         if self.traffic["entry"] == "repertoire":
-            return self._repertoire(0, outdir, families)
-        return self._pipeline(0, outdir)
+            fams = self.pool[0].families
+            order = sorted(range(len(fams)), key=lambda i: (
+                -fams[i].n_seqs, -fams[i].n_trees))
+            return self._repertoire(0, outdir, sorted(
+                order[:self.traffic["warmup_families"]]))
+        n = len(self.pool[0].families) \
+            if self.traffic["family_cache"] == "warm" else 1
+        jobs = [self._pipeline(k, outdir) for k in range(n)]
+        return Job(sum(j.trees for j in jobs), sum(j.wall_s for j in jobs),
+                   [o for j in jobs for o in j.outputs], {}, n)
 
     def discard(self, job: Job) -> None:
         """Delete a job's output files (the warm-up's are not judged)."""
@@ -194,7 +215,8 @@ class Driver:
             for o in outs:
                 fh.write(f"{o.yaml_path}\t0\t{o.trees_path}\t{o.out_path}\n")
         argv = ["repertoire", "--families", manifest, "--hmm-param-dir",
-                item.gene_dir, "--seed", str(job_seed(self.seed, k))]
+                item.gene_dir, "--seed", str(job_seed(self.seed, k)),
+                "--precision", self.precision]
         if self.device is not None:
             argv += ["--device", self.device]
         if self.stages:
@@ -223,6 +245,6 @@ class Driver:
         result = run_pipeline(f.yaml_path, 0, item.gene_dir, f.trees_path,
                               out.out_path, num_rates=self.num_rates,
                               seed=job_seed(self.seed, k),
-                              device=self.device)
+                              precision=self.precision, device=self.device)
         wall = time.perf_counter() - t0
         return Job(f.n_trees, wall, [out], dict(result.timings or {}), 1)

@@ -7,15 +7,17 @@
    (``limits/<cell>.json``);
 2. refuse to run without the CUDA devices the cell asks for;
 3. set-up: import torch and the port and start CUDA (``import_s``),
-   write the pool of inputs (``gen_s``), run one warm-up job at the cell's
-   own shapes;
+   write the pool of inputs (``gen_s``), warm up at the cell's own shapes
+   (``drivers.Driver.warm_up``: a warm pool's every family built);
 4. the window: jobs in a closed loop with one client until they have
    taken ``--seconds``; the job running then runs to its end, and the
    window ends with it.  Between jobs, off the window's clock, the
    harness reads each job's outputs, keeps a sample and deletes them.
    With ``--trace 1`` the profiler records the window;
-5. read the device's memory peak, free the program's state, and check the
-   window's outputs against the plain reference;
+5. read the device's memory peak (``device_memory_peak_mb``: the CUDA
+   allocator's peak over set-up and window, in 10**6 bytes), free the
+   program's state, and check the window's outputs against the plain
+   reference;
 6. print the cell's metrics as one JSON line, last on standard output,
    and each number compared beside its limit, last on standard error.
 """
@@ -127,6 +129,7 @@ class RunRecord:
     ensembles: List[dict] = field(default_factory=list)
     card: str = ""
     notes: Dict[str, str] = field(default_factory=dict)
+    precision: str = "f32"          # the configuration's
 
 
 def forbidden_modules() -> List[str]:
@@ -309,7 +312,8 @@ def main(argv=None, t_start: Optional[float] = None, device: str = "cuda",
         card = card_identity() if device == "cuda" else device
         log(f"card: {card}")
         if not args.trace:
-            values = {"trees_per_s": trees / window_s, "setup_s": setup_s}
+            values = {"trees_per_s": trees / window_s, "setup_s": setup_s,
+                      "device_memory_peak_mb": peak / 1e6}
             metrics = {m["name"]: {"value": values[m["name"]],
                                    "unit": m["unit"]}
                        for m in cell.end_to_end}
@@ -319,7 +323,8 @@ def main(argv=None, t_start: Optional[float] = None, device: str = "cuda",
             device_info["window_s"] = summary.window_s
             ensembles = ensembles_run(jobs, pool, config["num_rates"])
             record = RunRecord(cell.name, jobs, trees, window_s, import_s,
-                               summary, ensembles, card)
+                               summary, ensembles, card,
+                               precision=config["precision"])
             metrics = per_layer_metrics(cell, record)
             for k, v in record.notes.items():
                 log(f"{k}: {v}")

@@ -6,7 +6,7 @@ built in the window."""
 UNIT = "s"
 LAYER = "compiler"
 SOURCE = "program_span"
-MOVES = "trees_per_s"
+MOVES = "device_memory_peak_mb"
 WORKLOADS = ["partition.cold"]
 
 

@@ -6,8 +6,8 @@ from benchmark.metrics import stage_ms_per_ktree
 UNIT = "ms/ktree"
 LAYER = "decode"
 SOURCE = "program_span"
-MOVES = "trees_per_s"
-WORKLOADS = ["partition.cold", "ch103.serve"]
+MOVES = "device_memory_peak_mb"
+WORKLOADS = ["partition.cold", "ch103.serve", "partition.serve"]
 
 
 def read(run):

@@ -7,8 +7,8 @@ from benchmark.trace import busy_s
 UNIT = "%"
 LAYER = "device"
 SOURCE = "device_trace"
-MOVES = "trees_per_s"
-WORKLOADS = ["partition.cold", "ch103.serve"]
+MOVES = "device_memory_peak_mb"
+WORKLOADS = ["partition.cold", "ch103.serve", "partition.serve"]
 
 
 def read(run):

@@ -4,8 +4,8 @@ profiler's count) per 1,000 trees the window completed."""
 UNIT = "launches/ktree"
 LAYER = "device"
 SOURCE = "device_trace"
-MOVES = "trees_per_s"
-WORKLOADS = ["partition.cold", "ch103.serve"]
+MOVES = "device_memory_peak_mb"
+WORKLOADS = ["partition.cold", "ch103.serve", "partition.serve"]
 
 
 def read(run):

@@ -8,8 +8,8 @@ from benchmark.metrics import stage_ms_per_ktree
 UNIT = "ms/ktree"
 LAYER = "pipeline"
 SOURCE = "program_span"
-MOVES = "trees_per_s"
-WORKLOADS = ["ch103.serve"]
+MOVES = "device_memory_peak_mb"
+WORKLOADS = ["ch103.serve", "partition.serve"]
 
 
 def read(run):

@@ -6,7 +6,7 @@ family of the window's jobs that report it."""
 UNIT = "s"
 LAYER = "compiler"
 SOURCE = "program_span"
-MOVES = "trees_per_s"
+MOVES = "device_memory_peak_mb"
 WORKLOADS = ["partition.cold"]
 
 

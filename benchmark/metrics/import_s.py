@@ -7,7 +7,7 @@ UNIT = "s"
 LAYER = "start-up"
 SOURCE = "host_clock"
 MOVES = "setup_s"
-WORKLOADS = ["partition.cold", "ch103.serve"]
+WORKLOADS = ["partition.cold", "ch103.serve", "partition.serve"]
 
 
 def read(run):

@@ -8,7 +8,7 @@ from benchmark.metrics import stage_ms_per_ktree
 UNIT = "ms/ktree"
 LAYER = "forward"
 SOURCE = "program_span"
-MOVES = "trees_per_s"
+MOVES = "device_memory_peak_mb"
 WORKLOADS = ["igk-partition.cold"]
 
 

@@ -19,24 +19,27 @@ sites (xMSA columns, one per (naive base, alignment column) pair):
   sum over the rate categories (1), ``FLOP_ROOT`` = 8.
 
 Bytes count each input read once and each output written once: per tree
-its edges (a float32 length and two int32 node indices), its 10 model
-parameters and R rates (float32) and its X site log-likelihoods
-(float32); per family and job the xMSA codes (one byte a tip and column).
+its edges (a length and two int32 node indices), its 10 model parameters
+and R rates and its X site log-likelihoods, each float of the run's
+precision (4 bytes in f32, 8 in f64); per family and job the xMSA codes
+(one byte a tip and column).
 
-The bound is the larger of the work over 67 TFLOP/s (float32 outside the
-tensor cores) and the bytes over 3.35 TB/s, the published peaks of one
-H100 SXM at its 700 W power limit; the harness prints the card's power
-limit beside the metric and which of the two binds.
+The bound is the larger of the work over the peak of the run's precision
+outside the tensor cores (67 TFLOP/s in float32, 34 in float64) and the
+bytes over 3.35 TB/s, the published peaks of one H100 SXM at its 700 W
+power limit; the harness prints the card's power limit beside the metric
+and which of the two binds.
 """
 
 UNIT = "%"
 LAYER = "kernels"
 SOURCE = "device_trace"
-MOVES = "trees_per_s"
-WORKLOADS = ["partition.cold", "ch103.serve"]
+MOVES = "device_memory_peak_mb"
+WORKLOADS = ["partition.cold", "ch103.serve", "partition.serve"]
 
 KERNEL_PATTERN = "pruning_kernel"
-PEAK_FLOPS = 67e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+FLOAT_BYTES = {"f32": 4, "f64": 8}
 PEAK_BYTES = 3.35e12
 FLOP_P = 136
 FLOP_MATVEC = 28
@@ -44,7 +47,7 @@ FLOP_JOIN = 4
 FLOP_ROOT = 8
 
 
-def tree_work(tips: int, cols: int, rates: int):
+def tree_work(tips: int, cols: int, rates: int, precision: str = "f32"):
     """(FLOP, bytes) of one rooted binary tree over ``tips`` tips."""
     edges = 2 * tips - 2
     internal = tips - 1
@@ -52,24 +55,25 @@ def tree_work(tips: int, cols: int, rates: int):
     per_site = (FLOP_MATVEC * internal_children + FLOP_JOIN * internal
                 + FLOP_ROOT)
     flops = rates * edges * FLOP_P + rates * cols * per_site
-    nbytes = edges * 12 + (10 + rates) * 4 + cols * 4
+    fb = FLOAT_BYTES[precision]
+    nbytes = edges * (fb + 8) + (10 + rates) * fb + cols * fb
     return flops, nbytes
 
 
-def work(ensembles):
+def work(ensembles, precision: str = "f32"):
     """Total (FLOP, bytes) of the ensembles a window ran: each a dict of
     trees, tips, cols and rates."""
     flops = nbytes = 0.0
     for e in ensembles:
-        f, b = tree_work(e["tips"], e["cols"], e["rates"])
+        f, b = tree_work(e["tips"], e["cols"], e["rates"], precision)
         flops += e["trees"] * f
         nbytes += e["trees"] * b + e["tips"] * e["cols"]
     return flops, nbytes
 
 
-def bound_s(flops: float, nbytes: float):
+def bound_s(flops: float, nbytes: float, precision: str = "f32"):
     """(the least seconds the card could take, what binds)."""
-    ops, mem = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    ops, mem = flops / PEAK_FLOPS[precision], nbytes / PEAK_BYTES
     return (ops, "operations") if ops >= mem else (mem, "bytes")
 
 
@@ -80,8 +84,9 @@ def read(run):
                 if KERNEL_PATTERN in name)
     if spent <= 0:
         return None
-    least, binds = bound_s(*work(run.ensembles))
+    least, binds = bound_s(*work(run.ensembles, run.precision),
+                           run.precision)
     run.notes["pruning_roofline"] = (
-        f"bound {least * 1e3:.3f} ms ({binds} bind) over {spent * 1e3:.3f} "
-        f"ms of kernel time; card {run.card}")
+        f"bound {least * 1e3:.3f} ms ({binds} bind, {run.precision}) over "
+        f"{spent * 1e3:.3f} ms of kernel time; card {run.card}")
     return 100.0 * least / spent

@@ -6,7 +6,7 @@ from benchmark.metrics import stage_ms_per_ktree
 UNIT = "ms/ktree"
 LAYER = "repertoire"
 SOURCE = "program_span"
-MOVES = "trees_per_s"
+MOVES = "device_memory_peak_mb"
 WORKLOADS = ["partition.cold"]
 
 

@@ -6,7 +6,7 @@ milliseconds per family of the window's jobs that report it."""
 UNIT = "ms"
 LAYER = "compiler"
 SOURCE = "program_span"
-MOVES = "trees_per_s"
+MOVES = "device_memory_peak_mb"
 WORKLOADS = ["igk-partition.cold"]
 
 

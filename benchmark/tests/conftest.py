@@ -28,14 +28,17 @@ def cuda_device():
     return "cuda"
 
 
-def tiny_cell(name: str, seqs: int = 5, trees: int = 12, families: int = 3):
+def tiny_cell(name: str, seqs: int = 5, trees: int = 12, families: int = 3,
+              precision: str = "f64"):
     """The cell ``name`` of BENCHMARK.json cut to a size the CPU runs in
     seconds: at most ``families`` families of at most ``seqs`` sequences
-    and ``trees`` trees."""
+    and ``trees`` trees, run in ``precision`` (f64 by default: the port's
+    CPU conformance path, which the tests hold to the reference at 1e-12)."""
     from benchmark import harness
 
     cell = harness.find_cell(name)
     cfg = copy.deepcopy(cell.config)
+    cfg["precision"] = precision
     cfg["families"] = cfg["families"][:families]
     for f in cfg["families"]:
         f["seqs"] = min(f["seqs"], seqs)

@@ -32,10 +32,17 @@ def test_a_sound_run_is_correct(capsys):
     assert result["check"]["bad_rows"] == {"value": 0, "limit": 0}
 
 
+def test_a_sound_warm_pool_run_is_correct(capsys):
+    """Three warm families, built in set-up, judged whole."""
+    result = _run(tiny_cell("partition.serve", seqs=4, trees=10), capsys)
+    assert result["correct"] is True and result["failed"] == 0
+    assert result["attempted"] >= 1
+
+
 def test_a_sound_repertoire_run_is_correct(capsys):
     result = _run(tiny_cell("partition.cold", seqs=4, trees=10), capsys)
     assert result["correct"] is True
-    assert set(result["metrics"]) == {"trees_per_s", "setup_s"}
+    assert set(result["metrics"]) == {"setup_s", "device_memory_peak_mb"}
 
 
 def test_log_likelihoods_altered_where_produced(capsys, monkeypatch):
@@ -91,7 +98,8 @@ def test_sampled_paths_altered_where_produced(capsys, monkeypatch):
     assert result["check"]["bad_rows"]["value"] > 0
 
 
-@pytest.mark.parametrize("entry", ["ch103.serve", "partition.cold"])
+@pytest.mark.parametrize("entry", ["ch103.serve", "partition.cold",
+                                   "partition.serve"])
 def test_half_of_the_trees_left_out(capsys, monkeypatch, entry):
     from linearham_tpu_torch.io import trees_tsv
     from linearham_tpu_torch.pipeline import run
@@ -105,7 +113,7 @@ def test_half_of_the_trees_left_out(capsys, monkeypatch, entry):
     monkeypatch.setattr(trees_tsv, "load_tree_samples", half)
     monkeypatch.setattr(run, "load_tree_samples", half)
     cell = _pipeline_cell() if entry == "ch103.serve" else \
-        tiny_cell("partition.cold", seqs=4, trees=10)
+        tiny_cell(entry, seqs=4, trees=10)
     result = _run(cell, capsys)
     assert result["correct"] is False
     assert result["failed"] == result["attempted"]

@@ -18,9 +18,11 @@ CELL = "igk-partition.cold"
 
 def _small_partition():
     """The cell with V genes cut to 120-123 sites and four families of 3-9
-    sequences and 6 trees each, one pool item."""
+    sequences and 6 trees each, one pool item, run in f64 (the port's CPU
+    conformance path)."""
     cell = harness.find_cell(CELL)
     cfg = copy.deepcopy(cell.config)
+    cfg["precision"] = "f64"
     cfg["germline"]["V"] = [[name, length - 167]
                             for name, length in cfg["germline"]["V"]]
     cfg["families"] = [dict(f, seqs=s, trees=6) for f, s in
@@ -81,7 +83,7 @@ def test_the_control_fails_the_igk_check():
     """The reference in float32 with TF32 matmul inputs, in the program's
     place, comes out not correct under the cell's limits (two families of
     25 sequences; ``benchmark/control.py`` runs it at the cell's size)."""
-    cell = tiny_cell(CELL, seqs=25, trees=16, families=2)
+    cell = tiny_cell(CELL, seqs=25, trees=16, families=2, precision="f32")
     v = control.control(cell, 2 ** 33 + 17, 32, device="cpu")
     limits = harness.find_cell(CELL).limits
     assert v.loglik_rel_gap > limits["loglik_rel_gap"] \

@@ -34,7 +34,8 @@ def _judge(outs, heavy=True, rows_per_output=6, block=5):
     return check.compare(c, "cpu", block)
 
 
-@pytest.mark.parametrize("name", ["partition.cold", "ch103.serve"])
+@pytest.mark.parametrize("name", ["partition.cold", "ch103.serve",
+                                  "partition.serve"])
 def test_reference_matches_the_port_on_the_cpu(tmp_path, family_cache_env,
                                               name):
     cell = tiny_cell(name, seqs=6, trees=10, families=2)
@@ -148,7 +149,8 @@ def test_the_control_machinery_is_sound_in_float64(tmp_path):
 
 
 @pytest.mark.parametrize("name,seqs", [("partition.cold", 25),
-                                       ("ch103.serve", 40)])
+                                       ("ch103.serve", 40),
+                                       ("partition.serve", 25)])
 def test_the_control_fails_the_check(name, seqs):
     """The reference in float32 with TF32 matmul inputs, put in the
     program's place, comes out not correct through the harness's
@@ -156,7 +158,8 @@ def test_the_control_fails_the_check(name, seqs):
     cuda test run it at the cells' own sizes)."""
     from benchmark import harness
 
-    cell = tiny_cell(name, seqs=seqs, trees=16, families=2)
+    cell = tiny_cell(name, seqs=seqs, trees=16, families=2,
+                     precision="f32")
     v = control.control(cell, 2 ** 33 + 17, 32, device="cpu")
     limits = harness.find_cell(name).limits
     assert v.loglik_rel_gap > limits["loglik_rel_gap"] \
@@ -169,8 +172,34 @@ def test_the_control_fails_the_check_at_the_cells_size(cuda_device):
     minutes)."""
     from benchmark import harness
 
-    for name in ("partition.cold", "ch103.serve"):
+    for name in ("partition.cold", "ch103.serve", "partition.serve"):
         cell = harness.find_cell(name)
         v = control.control(cell, 2 ** 33 + 17, 320, device=cuda_device)
         assert v.loglik_rel_gap > cell.limits["loglik_rel_gap"] \
             or v.bad_rows > cell.limits["bad_rows"]
+
+
+@pytest.mark.parametrize("precision,rounded", [("f32", True),
+                                               ("f64", False)])
+def test_the_control_runs_one_precision_below_the_configuration(
+        monkeypatch, precision, rounded):
+    """Below ``f32`` the control is float32 with TF32 matmul inputs; below
+    ``f64`` it is float32 with TF32 off."""
+    import torch
+
+    from benchmark.reference import model
+
+    built = []
+    build = model.FamilyModel.build.__func__
+
+    def spy(cls, *args, **kwargs):
+        built.append(build(cls, *args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(model.FamilyModel, "build", classmethod(spy))
+    cell = tiny_cell("ch103.serve", seqs=3, trees=4, families=1,
+                     precision=precision)
+    control.control(cell, 2 ** 33 + 5, 4, device="cpu")
+    programs = [m for m in built if m.dtype == torch.float32]
+    assert programs and len(programs) == len(built) - 1   # + the judge's
+    assert all((m.matmul_input is model.tf32) == rounded for m in programs)

@@ -59,3 +59,24 @@ def test_share_reads_kernel_time_by_name():
     assert m.read(run) == pytest.approx(25.0)
     run.trace = TraceSummary((0.0, 1.0), [], [])
     assert m.read(run) is None
+
+
+def test_an_f64_run_counts_8_byte_floats_against_the_f64_peak():
+    """A configuration at ``"precision": "f64"`` runs the kernel's double
+    instantiation: its floats are 8 bytes and its bound the f64 peak."""
+    from benchmark.trace import TraceSummary
+
+    m = _roofline()
+    flops, nbytes = m.tree_work(tips=3, cols=10, rates=4, precision="f64")
+    assert flops == m.tree_work(3, 10, 4)[0]
+    assert nbytes == 4 * (8 + 8) + (10 + 4) * 8 + 10 * 8
+    e = {"trees": 1000, "tips": 101, "cols": 863, "rates": 4}
+    least, binds = m.bound_s(*m.work([e], "f64"), "f64")
+    assert binds == "operations"
+    assert least == pytest.approx(m.work([e])[0] / 34e12)
+    summary = TraceSummary((0.0, 1.0), [
+            ("kernel", "void (anonymous namespace)::pruning_kernel<double, "
+             "4, 32>(int)", 0.1, 0.1 + 2 * least)], [])
+    run = harness.RunRecord("c", [], 1000, 1.0, 0.0, summary, [e],
+                            precision="f64")
+    assert m.read(run) == pytest.approx(50.0)

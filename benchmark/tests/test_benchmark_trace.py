@@ -2,6 +2,7 @@
 
 import json
 
+import numpy as np
 import pytest
 
 from benchmark import harness, trace
@@ -75,3 +76,97 @@ def test_short_kernel_names():
     ) == "(anonymous namespace)::pruning_kernel<float, 4, 64>"
     assert trace.short_name("Memcpy HtoD (Pinned -> Device)") == \
         "Memcpy HtoD (Pinned -> Device)"
+
+
+# The scans the sweep replaced, kept as its oracle: each gap's label by a
+# scan of every host range, and the window's clipping and gaps by a scan
+# of every operation for every job.
+def _host_label_scan(summary, t):
+    best, start = None, -1.0
+    for name, a, b in summary.host_ranges:
+        if a <= t <= b and name.startswith("stage/") and a > start:
+            best, start = name[len("stage/"):], a
+    if best is not None:
+        return best
+    if any(a <= t <= b for n, a, b in summary.host_ranges
+           if n == trace.JOB):
+        return "job"
+    return "harness"
+
+
+def _busy_scan(summary):
+    out = []
+    for lo, hi in summary.spans():
+        out += [(max(a, lo), min(b, hi)) for _, _, a, b in
+                summary.device_ops if b > lo and a < hi]
+    return trace.merged(out)
+
+
+def _gaps_scan(summary):
+    busy = _busy_scan(summary)
+    gaps = []
+    for lo, hi in summary.spans():
+        t = lo
+        for a, b in busy:
+            if b <= lo or a >= hi:
+                continue
+            if a > t:
+                gaps.append((t, a))
+            t = max(t, b)
+        if hi > t:
+            gaps.append((t, hi))
+    return gaps
+
+
+def _breakdown_scan(summary):
+    by_stage = {}
+    for a, b in _gaps_scan(summary):
+        label = _host_label_scan(summary, (a + b) / 2)
+        by_stage[label] = by_stage.get(label, 0.0) + (b - a)
+    return sorted(([k, v] for k, v in by_stage.items()),
+                  key=lambda kv: -kv[1])[:10]
+
+
+def _stages(rng, lo, hi, depth, out):
+    """Nested stage ranges inside [lo, hi], on a coarse grid so that
+    starts and ends tie, some of zero length."""
+    t = lo
+    while t < hi and rng.random() < 0.8:
+        a = min(hi, t + rng.integers(0, 3) * 0.25)
+        b = min(hi, a + rng.integers(0, 8) * 0.25)
+        out.append((f"stage/s{depth}_{rng.integers(0, 4)}", a, b))
+        if depth < 3 and b > a:
+            _stages(rng, a, b, depth + 1, out)
+        t = b if rng.random() < 0.7 else a      # siblings may overlap
+
+
+def _random_summary(seed):
+    rng = np.random.default_rng(seed)
+    host, t = [], 0.0
+    for _ in range(rng.integers(1, 6)):
+        t += rng.integers(0, 3) * 0.5           # harness time between jobs
+        end = t + rng.integers(1, 12) * 0.5
+        host.append(("bench/job", t, end))
+        _stages(rng, t - 0.5, end + 0.25, 0, host)   # some poke out
+        t = end
+    host = [host[i] for i in rng.permutation(len(host))]
+    ops = []
+    for _ in range(rng.integers(0, 40)):
+        a = rng.uniform(-1.0, t + 1.0)
+        ops.append(("kernel", f"k{rng.integers(0, 3)}", a,
+                    a + rng.uniform(0.0, 0.6)))
+    return trace.TraceSummary((0.0, t), ops, host)
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_the_sweep_labels_as_the_scan_did(seed):
+    s = _random_summary(seed)
+    assert trace.busy_intervals(s) == _busy_scan(s)
+    gaps = trace.idle_gaps(s)
+    assert gaps == _gaps_scan(s)
+    # The gaps' midpoints, and every grid point: starts and ends exactly.
+    times = [(a + b) / 2 for a, b in gaps] + \
+        [x * 0.25 for x in range(-4, int(s.window[1] * 4) + 5)]
+    assert trace.host_labels(s, times) == \
+        [_host_label_scan(s, t) for t in times]
+    assert trace.breakdown(s)["idle_gaps"] == _breakdown_scan(s)

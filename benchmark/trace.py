@@ -10,8 +10,11 @@ window's bounds, all on the trace's one clock.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import heapq
 import json
+import math
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
@@ -56,10 +59,15 @@ def merged(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 
 def busy_intervals(summary: TraceSummary) -> List[Tuple[float, float]]:
     """The union of device operations, clipped to the window's spans."""
+    spans = summary.spans()
+    his = [hi for _, hi in spans]
     out = []
-    for lo, hi in summary.spans():
-        out += [(max(a, lo), min(b, hi)) for _, _, a, b in
-                summary.device_ops if b > lo and a < hi]
+    for _, _, a, b in summary.device_ops:
+        i = bisect.bisect_right(his, a)          # the first span past a
+        while i < len(spans) and spans[i][0] < b:
+            lo, hi = spans[i]
+            out.append((max(a, lo), min(b, hi)))
+            i += 1
     return merged(out)
 
 
@@ -69,32 +77,52 @@ def busy_s(summary: TraceSummary) -> float:
 
 def idle_gaps(summary: TraceSummary) -> List[Tuple[float, float]]:
     busy = busy_intervals(summary)
+    ends = [b for _, b in busy]
     gaps = []
     for lo, hi in summary.spans():
         t = lo
-        for a, b in busy:
-            if b <= lo or a >= hi:
-                continue
+        i = bisect.bisect_right(ends, lo)        # the first busy past lo
+        while i < len(busy) and busy[i][0] < hi:
+            a, b = busy[i]
             if a > t:
                 gaps.append((t, a))
             t = max(t, b)
+            i += 1
         if hi > t:
             gaps.append((t, hi))
     return gaps
 
 
-def host_label(summary: TraceSummary, t: float) -> str:
-    """The innermost program stage open at ``t`` (the latest started),
-    else ``job`` inside a job, else ``harness``."""
-    best, start = None, -1.0
-    for name, a, b in summary.host_ranges:
-        if a <= t <= b and name.startswith("stage/") and a > start:
-            best, start = name[len("stage/"):], a
-    if best is not None:
-        return best
-    if any(a <= t <= b for n, a, b in summary.host_ranges if n == JOB):
-        return "job"
-    return "harness"
+def host_labels(summary: TraceSummary, times: List[float]) -> List[str]:
+    """What the host was doing at each of ``times``: the innermost
+    program stage open then (the latest started; of two that started
+    together, the one recorded first), else ``job`` inside a job, else
+    ``harness``.  One sweep over the times in order and the ranges by
+    start: a heap holds the stages started so far, latest first, and drops
+    one once it has ended before the time at hand."""
+    stages = sorted((a, n, b, name[len("stage/"):]) for n, (name, a, b)
+                    in enumerate(summary.host_ranges)
+                    if name.startswith("stage/"))
+    jobs = sorted((a, b) for name, a, b in summary.host_ranges
+                  if name == JOB)
+    labels = [""] * len(times)
+    heap: List[Tuple[float, int, float, str]] = []
+    si = ji = 0
+    job_end = -math.inf          # the latest end of a job started so far
+    for k in sorted(range(len(times)), key=times.__getitem__):
+        t = times[k]
+        while si < len(stages) and stages[si][0] <= t:
+            a, n, b, name = stages[si]
+            heapq.heappush(heap, (-a, n, b, name))
+            si += 1
+        while heap and heap[0][2] < t:
+            heapq.heappop(heap)
+        while ji < len(jobs) and jobs[ji][0] <= t:
+            job_end = max(job_end, jobs[ji][1])
+            ji += 1
+        labels[k] = heap[0][3] if heap else \
+            "job" if job_end >= t else "harness"
+    return labels
 
 
 def short_name(name: str, width: int = 96) -> str:
@@ -121,8 +149,9 @@ def breakdown(summary: TraceSummary, top: int = 10) -> Dict[str, list]:
         key = short_name(name)
         by_op[key] = by_op.get(key, 0.0) + (b - a)
     by_stage: Dict[str, float] = {}
-    for a, b in idle_gaps(summary):
-        label = host_label(summary, (a + b) / 2)
+    gaps = idle_gaps(summary)
+    labels = host_labels(summary, [(a + b) / 2 for a, b in gaps])
+    for (a, b), label in zip(gaps, labels):
         by_stage[label] = by_stage.get(label, 0.0) + (b - a)
     return {
         "device_ops": sorted(([k, v] for k, v in by_op.items()),
